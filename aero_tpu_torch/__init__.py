@@ -14,11 +14,27 @@ options this package emits the same proof bytes.
 - `merkle`  — commitments whose node levels stay on the device.
 - `air`     — the AIR base, FibAir and MidenAir.
 - `prover`  — FRI and the seven-stage prover.
-- `sdk`     — `prove(program, inputs, options)` on the protobuf wire types.
+- `spec`    — the protocol layer on Python integers: field, hashing, coin,
+              Merkle batch proofs, wire format, verifier, and the
+              simulation of the Cairo verifier's live sequence.
+- `vm`      — the C++ Miden-subset VM (built by `g++` at first use into
+              `build/aero_tpu_torch/`), MAST hashing, stdlib, Rescue.
+- `utils`   — tracing spans (`AERO_TPU_TRACE=1` echoes them).
+- `sdk`     — `prove(program, inputs, options)` on the protobuf wire types,
+              the wire converters, `ProofSubmissionService` and the HTTP
+              submission server (`python -m aero_tpu_torch.sdk.server`).
+- `io`      — a proof re-encoded as Cairo-readable memory.
+- `tools`   — `python -m aero_tpu_torch.tools.{generate_proof,stark_parser,demo}`.
 
-The package imports no JAX. It shares the JAX-free host code of
-`aero_tpu`: the protocol specification (`aero_tpu.spec`), the C++ VM
-(`aero_tpu.vm`), tracing spans and the SDK's wire converters.
+The package stands alone: it imports `torch`, `numpy` and the standard
+library, never `jax` and nothing of `aero_tpu`, and keeps its own copy of
+what it needs from there. Only `tests/test_torch_*.py` import both packages
+(`JAX_PLATFORMS=cpu python -m pytest tests/test_torch_*.py -q`, on the CPU).
+
+Every entry point proves on the CUDA card unless the caller names another
+device (`device="cpu"`, `--cpu`), and raises where there is no card: no
+fallback to the CPU. `python3 chip_smoke.py` at the root of the checkout
+drives every path on the card.
 """
 
 __version__ = "0.1.0"

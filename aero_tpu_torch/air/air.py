@@ -8,8 +8,8 @@ degree; the composition polynomial splits into `ce_blowup` columns.
 
 Transition evaluators are functions of (width, m) int64 field tensors.
 `evaluate_transitions_scalar` runs the same evaluator on one-element CPU
-tensors, so `aero_tpu.spec.verifier.verify(..., air=port_air)` checks a
-proof of this package without JAX.
+tensors, so `..spec.verifier.verify(..., air=port_air)` checks a proof of this
+package on the host.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from aero_tpu.spec import field as F
-from aero_tpu.spec.proof import Context, ProofOptions, TraceLayout
+from ..spec import field as F
+from ..spec.proof import Context, ProofOptions, TraceLayout
 
 from ..field import from_u64, to_u64
 

@@ -17,7 +17,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from aero_tpu.spec import field as F
+from ..spec import field as F
 
 from ..field import add, from_u64, mul, mul_scalar, scalar, sub, to_u64
 from .air import Air, Assertion, TransitionDegree

@@ -4,7 +4,7 @@ The counterpart of `aero_tpu/air/miden.py` (that module imports jax, so
 its constants, constraints and aux builders are carried over here; a CPU
 test holds each carried constant equal to the original). 112 transition
 constraints and 46 boundary assertions over the aero-tpu VM trace
-(`aero_tpu/vm/core/vm.cpp`); see the JAX module's docstring for the
+(`vm/core/vm.cpp`); see the JAX module's docstring for the
 constraint-by-constraint account.
 
 The constraints are evaluated over (72, m) / (9, m) int64 tensors with the
@@ -19,9 +19,9 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from aero_tpu.spec import field as F
-from aero_tpu.spec.proof import PublicInputs
-from aero_tpu.vm import (COL_CLK, COL_G, COL_M, NUM_GROUPS, NUM_MEMBERS,
+from ..spec import field as F
+from ..spec.proof import PublicInputs
+from ..vm import (COL_CLK, COL_G, COL_M, NUM_GROUPS, NUM_MEMBERS,
                          COL_IMM, COL_STACK, COL_PC, COL_OVF, COL_H0, COL_B1,
                          COL_E, COL_K, CH_CA, CH_CM, CH_CF, CH_CL, CH_C1,
                          CH_C2, CH_BITS, CH_ACC, CH_ACCZ, CH_SH, CH_P2, CH_CW,

@@ -19,7 +19,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from aero_tpu.spec.merkle import BatchMerkleProof, batch_proof_coords
+from ..spec.merkle import BatchMerkleProof, batch_proof_coords
 
 from ..hash.blake2s_cuda import hash_columns, merge_level
 

@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from aero_tpu.spec import field as F
+from ..spec import field as F
 
 from ..field import add, from_u64, mul, scalar, sub
 from . import tables

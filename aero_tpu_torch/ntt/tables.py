@@ -15,7 +15,7 @@ import functools
 
 import numpy as np
 
-from aero_tpu.spec import field as F
+from ..spec import field as F
 
 MAX_L = 4096            # longest single-pass NTT (4096 x 8 B of shared memory)
 

@@ -17,7 +17,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from aero_tpu.spec import field as F
+from ..spec import field as F
 
 from ..field import from_u64, gf_sum, mul, to_u64
 from ..merkle import ResidentMerkleTree, commit_columns

@@ -12,11 +12,11 @@ The counterpart of `aero_tpu/prover/prover.py`, stage for stage:
  7. queries_serialize  query openings, winterfell-format StarkProof
 
 Each stage reads and writes a `ProverState`, which `prove_resumable`
-checkpoints after every stage. Stages run under the shared tracing spans
-of `aero_tpu.utils` with the same names; on a CUDA device each stage ends
+checkpoints after every stage. Stages run under the tracing spans of
+`..utils`, named as the JAX package names them; on a CUDA device each stage ends
 in a synchronize, so a span measures the stage's device work.
 
-The transcript is the shared `spec.coin.RandomCoin`, seeded only from
+The transcript is `..spec.coin.RandomCoin`, seeded only from
 public inputs and commitments, and the PoW search returns the minimal
 nonce, so on the same trace and options the proof bytes equal those of
 `aero_tpu.prover.prove`.
@@ -38,12 +38,12 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from aero_tpu.spec import field as F
-from aero_tpu.spec.coin import RandomCoin
-from aero_tpu.spec.hashing import hash_elements
-from aero_tpu.spec.proof import (FriProof, FriProofLayer, OodFrame, Queries,
+from ..spec import field as F
+from ..spec.coin import RandomCoin
+from ..spec.hashing import hash_elements
+from ..spec.proof import (FriProof, FriProofLayer, OodFrame, Queries,
                                  StarkProof, felts_to_bytes)
-from aero_tpu.utils import span
+from ..utils import span
 
 from ..air.air import Air
 from ..field import (add, batch_inv, eval_polys_multi, from_u64, gf_sum, mul,

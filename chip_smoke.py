@@ -3,36 +3,53 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card and `nvcc`; builds the kernels from `aero_tpu_torch/csrc`
-at first use. Set-up, then four phases, each of which raises on a failed
-check (so the script exits non-zero):
+Needs one CUDA card, `nvcc` and `cuobjdump`; builds the kernels from
+`aero_tpu_torch/csrc` and the C++ VM from `aero_tpu_torch/vm/core` at first
+use. It imports the port only. Set-up, then six phases, each of which raises
+on a failed check (so the script exits non-zero):
 
-  0. card name and power limit, torch/CUDA versions, kernel and VM build
-     times;
-  1. blake2s kernel vs its plain PyTorch version vs hashlib at main-path
-     shapes, and the PoW grind vs a host scan;
-  2. NTT kernel vs its plain versions, round trips, and a coset LDE;
+  0. card name, power limit and clocks, torch/CUDA versions, kernel and VM
+     build times, instruction counts read from the kernels' SASS;
+  1. blake2s kernel vs its plain PyTorch version vs hashlib, and the PoW
+     grind vs a host scan, at 2^16 leaves and at the shapes the 2^20-row
+     proof launches (72 x 2^23 and 9 x 2^23 leaves, a 2^23 -> 2^22 level);
+  2. NTT kernel vs its plain versions, round trips, a coset LDE, and the
+     72 x 2^23 transform of the 2^20-row proof;
   3. the golden-parameter Miden proof (fib(10), 1024 rows, default
      options) through `aero_tpu_torch.sdk.prove` on the card: its sha256
      must equal the committed `aero_tpu` digest, and it must verify;
   4. a 2^20-row Miden proof of a real execution trace (2^23-point LDE
-     domain): it must verify; prints stage times, wall clocks, peak memory.
+     domain): it must verify; prints stage times, wall clocks, peak memory;
+  5. the served path: a `SubmissionServer` on an ephemeral port accepts the
+     2^20-row proof (same receipt twice) and the golden proof, refuses a
+     tampered nonce and answers garbage with HTTP 400;
+  6. the parser path: `generate_proof` on the card writes a .bin, the
+     parser re-encodes it as Cairo memory and `cairo_sim` accepts it.
 
 Kernel comparisons are exact (tolerance 0): finite-field and hash
 arithmetic. Launch counters are reset right before each proof and read
-right after it. The second-to-last line is a JSON object with one entry per
-kernel of the proof path; the last line is
+right after it. Each kernel's bound is the larger of its bytes (inputs read
+once, outputs written once) over 3.35 TB/s and its instructions (SASS
+counts per butterfly or compress, by pipe, times the work of the call) over
+what 132 SMs take at the card's maximum SM clock: 64 integer-ALU lanes, 64
+multiply-add lanes and 128 scheduler slots each. The third-to-last line is
+a JSON object with one entry per kernel of the proof path; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -45,6 +62,9 @@ NTT_SRC = "aero_tpu_torch/csrc/ntt.cu"
 B2S_SRC = "aero_tpu_torch/csrc/blake2s.cu"
 NTT_TPU = "aero_tpu/ntt/ntt_pallas.py:131"
 B2S_TPU = "aero_tpu/hash/blake2s_pallas.py:36"
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+SMS = 132                      # streaming multiprocessors of an H100 SXM
+LOG_LDE = 23                   # LDE domain of the 2^20-row proof
 
 
 def long_fib_source(n_iters: int) -> str:
@@ -109,8 +129,67 @@ def words_tensor(arr: np.ndarray, device) -> torch.Tensor:
                             .view(np.int64)).to(device)
 
 
-def phase_blake2s(dev, rng, kernels) -> None:
-    from aero_tpu.spec.hashing import hash_elements, merge_with_int
+def device_felts(shape, gen, dev) -> torch.Tensor:
+    """Seeded canonical felts made on the card: hi < 2^32 - 1 keeps every
+    value below p = 2^64 - 2^32 + 1."""
+    hi = torch.randint(0, (1 << 32) - 1, shape, generator=gen, device=dev,
+                       dtype=torch.int64)
+    lo = torch.randint(0, 1 << 32, shape, generator=gen, device=dev,
+                       dtype=torch.int64)
+    return hi.bitwise_left_shift_(32).bitwise_or_(lo)
+
+
+def bound(nbytes: int, units: int, per_unit, clock_hz: float):
+    """(least milliseconds the card could take, what sets it): the bytes
+    over the memory rate, or `units` of work of `per_unit` instructions
+    each over what 132 SMs take in a clock (`_sass.Counts.sm_clocks`)."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = units * per_unit.sm_clocks() / (SMS * clock_hz) * 1e3
+    return ((by_bytes, "bytes") if by_bytes >= by_ops
+            else (by_ops, "operations"))
+
+
+def record(kernels, name, shape, err, ms, plain_ms, nbytes, units, per_unit,
+           clock_hz) -> None:
+    """Log the bound of the call just timed; with a `name`, keep the row
+    for the `kernels` line."""
+    b_ms, b_by = bound(nbytes, units, per_unit, clock_hz)
+    log(f"          bound {b_ms:.3f} ms by {b_by} ({nbytes} B, {units} x "
+        f"{per_unit.total} instructions): {100 * b_ms / ms:.1f} % of the "
+        f"bound reached")
+    if name is not None:
+        kernels[name].update(shape=shape, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None)
+
+
+def read_sass_counts(lib) -> dict:
+    """Instructions per NTT butterfly and per blake2s compress, by pipe,
+    read from the SASS of the built library."""
+    from aero_tpu_torch import _sass
+    fns = _sass.parse_functions(_sass.dump_sass(lib))
+    merge = _sass.count_instructions(
+        _sass.find_function(fns, "merge_level_kernel"))
+    grind = _sass.count_instructions(_sass.find_function(fns, "grind_kernel"))
+    leaf_loops = _sass.loops(_sass.find_function(fns, "hash_columns_kernel"))
+    check(bool(leaf_loops), "hash_columns_kernel has its compress loop")
+    leaf = _sass.count_instructions(max(leaf_loops, key=len))
+    check(leaf.total <= 1.25 * merge.total,
+          "the leaf loop holds one compress per trip")
+    counts = {"butterfly": _sass.butterfly_counts(
+                  _sass.find_function(fns, "colntt_kernel")),
+              "compress_merge": merge, "compress_leaf": leaf,
+              "compress_grind": grind}
+    for k, c in counts.items():
+        log(f"[set-up] SASS per {k}: {c.alu} ALU, {c.fma} multiply-add, "
+            f"{c.uniform} uniform, {c.memory} memory, {c.control} control "
+            f"instructions; at least {c.sm_clocks():.2f} SM clocks a thread")
+        check(c.alu > 0 and c.fma > 0, f"SASS counts of {k} > 0")
+    return counts
+
+
+def phase_blake2s(dev, rng, kernels, sass, clock_hz) -> None:
+    from aero_tpu_torch.spec.hashing import hash_elements, merge_with_int
     from aero_tpu_torch.field import from_u64, to_u64
     from aero_tpu_torch.hash import blake2s_cuda as bc
 
@@ -146,9 +225,6 @@ def phase_blake2s(dev, rng, kernels) -> None:
         pms = cuda_ms(lambda: bc.hash_columns_plain(cols), iters=1)
         log(f"[phase 1] hash_columns {w} x 2^16: kernel {ms:.3f} ms, "
             f"plain {pms:.3f} ms, max_abs_err {err}")
-        if w == 72:
-            kernels["blake2s_hash_columns"].update(
-                max_abs_err=err, ms=ms, plain_ms=pms)
 
     d = words_tensor(rng.integers(0, 2**32, size=(8, 1 << 17),
                                   dtype=np.uint64), dev)
@@ -166,8 +242,6 @@ def phase_blake2s(dev, rng, kernels) -> None:
     pms = cuda_ms(lambda: bc.merge_level_plain(d), iters=1)
     log(f"[phase 1] merge_level 2^17 -> 2^16: kernel {ms:.3f} ms, "
         f"plain {pms:.3f} ms, max_abs_err {err}")
-    kernels["blake2s_merge_level"].update(max_abs_err=err, ms=ms,
-                                          plain_ms=pms)
 
     for s in range(2):
         seed = hashlib.blake2s(f"chip-smoke-seed-{s}".encode()).digest()
@@ -184,11 +258,67 @@ def phase_blake2s(dev, rng, kernels) -> None:
         log(f"[phase 1] grind_pow 16 bits seed {s}: nonce {nonce} (kernel =="
             f" plain == host scan); kernel {ms:.3f} ms, plain {pms:.3f} ms")
         if s == 0:
-            kernels["blake2s_grind_pow"].update(
-                max_abs_err=abs(nonce - host), ms=ms, plain_ms=pms)
+            # the data needs nonce + 1 hashes; a launch tries 2^20 nonces
+            record(kernels, "blake2s_grind_pow",
+                   "16 bits, batches of 2^20 nonces (host clock)",
+                   abs(nonce - host), ms, pms, 64 + 8, host + 1,
+                   sass["compress_grind"], clock_hz)
 
 
-def phase_ntt(dev, rng, kernels) -> None:
+def phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz) -> None:
+    """The leaf and merge shapes of the 2^20-row proof, each held against
+    the plain version chunk by chunk over the whole output."""
+    from aero_tpu_torch.field import to_u64
+    from aero_tpu_torch.hash import blake2s_cuda as bc
+    from aero_tpu_torch.spec.hashing import hash_elements
+    n = 1 << LOG_LDE
+    chunk = 1 << 20
+
+    def plain_chunks(fn, src, ratio, out):
+        """max_abs_err of `out` against fn over column chunks of `src`
+        (`ratio` input columns per output column), and the plain time."""
+        err = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in range(0, out.shape[1], chunk):
+            p = fn(src[:, ratio * a:ratio * (a + chunk)].contiguous())
+            err = max(err, max_abs_err(out[:, a:a + chunk], p))
+        torch.cuda.synchronize()
+        return err, (time.perf_counter() - t0) * 1e3
+
+    for w in (72, 9):
+        cols = device_felts((w, n), gen, dev)
+        k = bc.hash_columns(cols)
+        err, pms = plain_chunks(bc.hash_columns_plain, cols, 1, k)
+        check(err == 0, f"hash_columns {w} x 2^{LOG_LDE} kernel == plain")
+        kh = k[:, ::n // 8 + 1].cpu().numpy()
+        host = to_u64(cols[:, ::n // 8 + 1].contiguous())
+        for i in range(kh.shape[1]):
+            check(kh[:, i].astype("<u4").tobytes()
+                  == hash_elements([int(v) for v in host[:, i]]),
+                  f"hash_columns {w} x 2^{LOG_LDE} == spec hash_elements")
+        ms = cuda_ms(lambda: bc.hash_columns(cols))
+        log(f"[phase 1] hash_columns {w} x 2^{LOG_LDE}: kernel {ms:.3f} ms, "
+            f"plain {pms:.3f} ms (2^20-leaf chunks), max_abs_err {err}")
+        record(kernels, "blake2s_hash_columns" if w == 72 else None,
+               f"{w} x 2^{LOG_LDE}", err, ms, pms, (w + 8) * n * 8,
+               (w + 1) // 2 * n, sass["compress_leaf"], clock_hz)
+        del cols, k
+
+    d = torch.randint(0, 1 << 32, (8, n), generator=gen, device=dev,
+                      dtype=torch.int64)
+    k = bc.merge_level(d)
+    err, pms = plain_chunks(bc.merge_level_plain, d, 2, k)
+    check(err == 0, f"merge_level 2^{LOG_LDE} kernel == plain")
+    ms = cuda_ms(lambda: bc.merge_level(d))
+    log(f"[phase 1] merge_level 2^{LOG_LDE} -> 2^{LOG_LDE - 1}: kernel "
+        f"{ms:.3f} ms, plain {pms:.3f} ms (chunked), max_abs_err {err}")
+    record(kernels, "blake2s_merge_level", f"2^{LOG_LDE} -> 2^{LOG_LDE - 1}",
+           err, ms, pms, (8 * n + 8 * n // 2) * 8, n // 2,
+           sass["compress_merge"], clock_hz)
+
+
+def phase_ntt(dev, rng, gen, kernels, sass, clock_hz) -> None:
     from aero_tpu_torch.field import P, from_u64
     from aero_tpu_torch.ntt import coset_pad, lde, ntt_plain
     from aero_tpu_torch.ntt.ntt_cuda import ntt_cuda, ntt_four_step_plain
@@ -222,7 +352,9 @@ def phase_ntt(dev, rng, kernels) -> None:
     log(f"[phase 2] ntt 2^23 x 8 (the LDE transform of 8 columns): kernel "
         f"{ms:.3f} ms, four-step plain {pms:.3f} ms, radix-2 plain "
         f"{r2ms:.3f} ms, max_abs_err {err}")
-    kernels["gl_colntt"].update(max_abs_err=err, ms=ms, plain_ms=pms)
+    record(kernels, None, "", err, ms, pms,
+           2 * x.numel() * 8 + ((1 << 23) + (1 << 12)) * 8,
+           x.numel() * 23 // 2, sass["butterfly"], clock_hz)
     del x, k, p
 
     c = from_u64(rng.integers(0, P, size=(8, 1 << 20), dtype=np.uint64), dev)
@@ -233,6 +365,29 @@ def phase_ntt(dev, rng, kernels) -> None:
     pms = cuda_ms(lambda: ntt_plain(coset_pad(c, 3)), iters=1)
     log(f"[phase 2] lde (8, 2^20) blowup 8: kernel path {ms:.3f} ms, plain "
         f"{pms:.3f} ms, exact")
+    del c, k, p
+
+    # the main-trace LDE transform of the 2^20-row proof: 72 columns at once
+    n = 1 << LOG_LDE
+    x = device_felts((72, n), gen, dev)
+    k = ntt_cuda(x)
+    err = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in range(0, 72, 8):
+        err = max(err, max_abs_err(k[a:a + 8],
+                                   ntt_four_step_plain(x[a:a + 8], False)))
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    check(err == 0, f"ntt 2^{LOG_LDE} x 72 kernel == four-step plain")
+    del k
+    ms = cuda_ms(lambda: ntt_cuda(x))
+    log(f"[phase 2] ntt 2^{LOG_LDE} x 72 (2 launches): kernel {ms:.3f} ms, "
+        f"four-step plain {pms:.3f} ms (8-column chunks), max_abs_err {err}")
+    # bytes: the columns in and out, the cross table and the stage twiddles
+    record(kernels, "gl_colntt", f"NTT 2^{LOG_LDE} x 72 (2 launches)", err,
+           ms, pms, 2 * x.numel() * 8 + (n + (1 << 12)) * 8,
+           x.numel() * LOG_LDE // 2, sass["butterfly"], clock_hz)
 
 
 def _launches():
@@ -249,17 +404,17 @@ def _reset_launches():
 
 
 def _prove(src: str, min_rows: int, dev):
-    from aero_tpu.sdk.pb import aero_pb2 as pb
     from aero_tpu_torch import sdk
+    from aero_tpu_torch.sdk.pb import aero_pb2 as pb
     program = pb.MidenProgram(program=src)
     inputs = pb.MidenProgramInputs(stack_init=[1, 0])   # top-first [0, 1]
     return sdk.prove(program, inputs, min_rows=min_rows, device=dev)
 
 
 def _verify(res, src: str) -> None:
-    from aero_tpu.sdk import DEFAULT_OPTIONS
-    from aero_tpu.spec.verifier import verify
     from aero_tpu_torch.air.miden import MidenAir
+    from aero_tpu_torch.sdk import DEFAULT_OPTIONS
+    from aero_tpu_torch.spec.verifier import verify
     proof, pub = res.native_proof, res.native_pub
     air = MidenAir(proof.context.trace_length, pub, DEFAULT_OPTIONS,
                    program=src)
@@ -270,8 +425,8 @@ PATH_KERNELS = ("gl_colntt", "blake2s_hash_columns", "blake2s_merge_level",
                 "blake2s_grind_pow")
 
 
-def phase_golden(dev) -> None:
-    from aero_tpu.vm import fibonacci_source
+def phase_golden(dev):
+    from aero_tpu_torch.vm import fibonacci_source
     with open(GOLDEN) as f:
         want = json.load(f)
     src = fibonacci_source(10)
@@ -290,11 +445,12 @@ def phase_golden(dev) -> None:
     log("[phase 3] golden proof verifies under spec.verifier (air=port air)")
     for name in PATH_KERNELS:
         check(counts[name] > 0, f"{name} launched in the golden proof")
+    return res
 
 
-def phase_scale(dev, kernels) -> None:
-    from aero_tpu.utils import get_tracer
+def phase_scale(dev, kernels):
     from aero_tpu_torch.prover import STAGES
+    from aero_tpu_torch.utils import get_tracer
     SPANS = ("execute",) + STAGES + ("to_pb",)
     n_iters = ((1 << 20) - 64) // 12
     src = long_fib_source(n_iters)
@@ -332,6 +488,125 @@ def phase_scale(dev, kernels) -> None:
     log(f"[phase 4] 2^20-row proof (warm): {warm:.3f} s, peak device memory "
         f"{torch.cuda.max_memory_allocated()} B")
     log("[phase 4] warm span seconds: " + json.dumps(stages))
+    return res
+
+
+def phase_served(scale_res, golden_res) -> None:
+    """A submission server answers five requests about proofs made on the
+    card; verification is host code, so no kernel is launched here."""
+    from aero_tpu_torch.sdk.pb import aero_pb2 as pb
+    from aero_tpu_torch.sdk.server import (SubmissionError, SubmissionServer,
+                                           submit_proof_remote)
+
+    def request(res):
+        return pb.ProofSubmissionRequest(
+            proof=res.proof, public_inputs=res.public_inputs,
+            source_proof_system=pb.MIDEN, target_chain=pb.STARKNET)
+
+    def timed(what, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"[phase 5] {what}: {time.perf_counter() - t0:.3f} s")
+        return out
+
+    _reset_launches()
+    server = SubmissionServer().start()
+    try:
+        url = f"http://127.0.0.1:{server.port}"
+        req = request(scale_res)
+        receipt = timed("2^20-row proof accepted",
+                        lambda: submit_proof_remote(url, req))
+        check(len(receipt) == 64 and int(receipt, 16) >= 0,
+              "receipt is 64 hex characters")
+        again = timed("2^20-row proof accepted again",
+                      lambda: submit_proof_remote(url, req))
+        check(again == receipt, "same receipt on a second submission")
+        g_receipt = timed("golden proof accepted", lambda:
+                          submit_proof_remote(url, request(golden_res)))
+        check(len(g_receipt) == 64 and g_receipt != receipt,
+              "golden proof has a receipt of its own")
+
+        bad = request(scale_res)
+        bad.proof.pow_nonce += 1
+
+        def refused():
+            try:
+                submit_proof_remote(url, bad)
+            except SubmissionError as e:
+                return str(e)
+            raise RuntimeError("check failed: tampered nonce was accepted")
+        why = timed("tampered nonce refused", refused)
+        log(f"[phase 5] the server said: {why!r}")
+
+        def garbage():
+            r = urllib.request.Request(
+                url + "/submit_proof",
+                data=b"not a protobuf of the right shape" * 5)
+            try:
+                urllib.request.urlopen(r, timeout=30)
+            except urllib.error.HTTPError as e:
+                return e.code
+            raise RuntimeError("check failed: garbage bytes were accepted")
+        check(timed("garbage bytes refused", garbage) == 400,
+              "garbage bytes get HTTP 400")
+    finally:
+        server.stop()
+    log(f"[phase 5] receipt {receipt}; server stopped; launches "
+        f"{_launches()}")
+
+
+def phase_parser(dev) -> None:
+    """generate_proof on the card -> .bin -> Cairo-memory JSON -> the Cairo
+    verifier's live sequence."""
+    from aero_tpu_torch.air.miden import MidenAir
+    from aero_tpu_torch.io.cairo_memory import (to_json, write_proof,
+                                                write_public_inputs)
+    from aero_tpu_torch.sdk import DEFAULT_OPTIONS
+    from aero_tpu_torch.spec.cairo_sim import simulate_on_proof
+    from aero_tpu_torch.spec.proof import load_proof_file
+    from aero_tpu_torch.tools import generate_proof, stark_parser
+    from aero_tpu_torch.vm import fibonacci_source
+
+    with open(GOLDEN) as f:
+        want = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fib.bin")
+        _reset_launches()
+        t0 = time.perf_counter()
+        data = generate_proof.generate(n=10, out=path, min_rows=1024,
+                                       device=dev)
+        dt = time.perf_counter() - t0
+        counts = _launches()
+        for name in PATH_KERNELS:
+            check(counts[name] > 0, f"{name} launched by generate_proof")
+        with open(path, "rb") as f:
+            check(f.read() == data, "the .bin holds the returned bytes")
+        pub, proof = load_proof_file(path)
+        digest = hashlib.sha256(proof.to_bytes()).hexdigest()
+        log(f"[phase 6] generate_proof wrote {len(data)} B in {dt:.3f} s; "
+            f"proof sha256 {digest}; launches {counts}")
+        check(digest == want["sha256"],
+              "the proof in the .bin == the golden aero_tpu digest")
+        for cmd, writer, arg in (("proof", write_proof, proof),
+                                 ("public-inputs", write_public_inputs, pub)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = stark_parser.main([path, cmd])
+            memory = json.loads(buf.getvalue())
+            check(rc == 0 and isinstance(memory, list) and len(memory) > 0
+                  and buf.getvalue().strip() == to_json(writer, arg).strip(),
+                  f"stark_parser {cmd} prints the Cairo memory")
+            log(f"[phase 6] stark_parser {cmd}: {len(memory)} memory cells")
+    air = MidenAir(proof.context.trace_length, pub, DEFAULT_OPTIONS,
+                   program=fibonacci_source(10))
+    t0 = time.perf_counter()
+    positions = simulate_on_proof(
+        proof, pub, num_transition=air.num_transition_constraints,
+        num_assertions=air.num_assertions)
+    check(len(positions) == DEFAULT_OPTIONS.num_queries,
+          "cairo_sim opened every query")
+    log(f"[phase 6] cairo_sim accepts the proof ({len(positions)} queries) "
+        f"in {time.perf_counter() - t0:.3f} s")
 
 
 def main() -> int:
@@ -342,23 +617,32 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from aero_tpu_torch import _build
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    log(f"[set-up] {smi}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, python {sys.version.split()[0]}")
+    def smi_query(fields: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True
+        ).stdout.strip().splitlines()[0]
+
+    smi = smi_query("name,power.limit")
+    clock_mhz = float(smi_query("clocks.max.sm").split()[0])
+    clock_hz = clock_mhz * 1e6
+    log(f"[set-up] {smi}; max SM clock {clock_mhz:.0f} MHz; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}, python "
+        f"{sys.version.split()[0]}")
     t0 = time.perf_counter()
     lib = _build.build()
     _build.load()
     log(f"[set-up] kernels built in {time.perf_counter() - t0:.3f} s: {lib}")
+    sass = read_sass_counts(lib)
     # the C++ VM builds itself at its first run; keep that out of phase 3
-    from aero_tpu.vm import execute_full, fibonacci_source
+    from aero_tpu_torch.vm import execute_full, fibonacci_source
     t0 = time.perf_counter()
     execute_full(fibonacci_source(1), [0, 1], min_rows=64)
     log(f"[set-up] VM ready (built at first run) in "
         f"{time.perf_counter() - t0:.3f} s")
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
 
     kernels = {
         "gl_colntt": dict(route="cuda", source=NTT_SRC, replaces=NTT_TPU),
@@ -369,16 +653,20 @@ def main() -> int:
         "blake2s_grind_pow": dict(route="cuda", source=B2S_SRC,
                                   replaces=B2S_TPU),
     }
-    phase_blake2s(dev, rng, kernels)
-    phase_ntt(dev, rng, kernels)
-    phase_golden(dev)
-    phase_scale(dev, kernels)
+    phase_blake2s(dev, rng, kernels, sass, clock_hz)
+    phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz)
+    phase_ntt(dev, rng, gen, kernels, sass, clock_hz)
+    torch.cuda.empty_cache()
+    golden_res = phase_golden(dev)
+    scale_res = phase_scale(dev, kernels)
+    phase_served(scale_res, golden_res)
+    phase_parser(dev)
 
+    keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [
-        {"name": name, "route": k["route"], "source": k["source"],
-         "replaces": k["replaces"], "launches": k["launches"],
-         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-         "plain_ms": k["plain_ms"]} for name, k in kernels.items()]}))
+        {"name": name, **{key: k[key] for key in keys}}
+        for name, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

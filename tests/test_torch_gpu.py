@@ -21,7 +21,7 @@ from aero_tpu_torch.hash import blake2s_cuda as TK
 from aero_tpu_torch.ntt import coset_pad, lde, ntt_plain
 from aero_tpu_torch.ntt import ntt_cuda
 from aero_tpu_torch.prover import prove
-from aero_tpu.spec.proof import ProofOptions
+from aero_tpu_torch.spec.proof import ProofOptions
 
 pytestmark = pytest.mark.gpu
 
@@ -106,3 +106,20 @@ def test_fib_proof_on_card_equals_cpu(cuda_device):
     card = prove(TF.FibAir(n, pub, opts),
                  TF.build_fib_trace(n, cuda_device), pub)
     assert card.to_bytes() == cpu.to_bytes()
+
+
+def test_sdk_prove_defaults_to_the_card(cuda_device):
+    from aero_tpu_torch import sdk
+    from aero_tpu_torch.ntt import ntt_cuda as nc
+    from aero_tpu_torch.sdk.pb import aero_pb2 as pb
+    from aero_tpu_torch.vm import fibonacci_source
+    program = pb.MidenProgram(program=fibonacci_source(10))
+    inputs = pb.MidenProgramInputs(stack_init=[1, 0])
+    fast = sdk.options_to_pb(ProofOptions(num_queries=7, blowup_factor=8,
+                                          grinding_factor=2))
+    nc.reset_launches()
+    card = sdk.prove(program, inputs, fast)              # device=None
+    assert nc.LAUNCHES["gl_colntt"] > 0
+    cpu = sdk.prove(program, inputs, fast, device="cpu")
+    assert card.native_proof.to_bytes() == cpu.native_proof.to_bytes()
+    assert card.proof.SerializeToString() == cpu.proof.SerializeToString()

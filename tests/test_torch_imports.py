@@ -1,7 +1,10 @@
-"""aero_tpu_torch stands without JAX, and chip_smoke.py without the CPU.
+"""aero_tpu_torch stands alone, and chip_smoke.py does not run on the CPU.
 
-- Importing every module of the package (and chip_smoke.py) leaves `jax`
-  out of sys.modules; no source of the port imports jax.
+- Importing every module of the package (and chip_smoke.py) leaves `jax`,
+  `aero_tpu` and every `aero_tpu.*` out of sys.modules; no source of the
+  port imports either.
+- With only `aero_tpu_torch/` on the path (no `aero_tpu/` beside it) the
+  entry points import, prove on the CPU and parse the proof.
 - chip_smoke.py exits non-zero and prints no result without a card.
 - The kernel build raises when nvcc is missing (no silent fallback).
 """
@@ -31,7 +34,12 @@ def test_package_has_the_slice_modules():
     for m in ("field.gl", "ntt.tables", "ntt.ntt", "ntt.ntt_cuda",
               "hash.blake2s", "hash.blake2s_cuda", "merkle.tree", "air.air",
               "air.fib", "air.miden", "prover.fri", "prover.prover", "sdk",
-              "_build"):
+              "_build", "_sass", "spec.field", "spec.hashing", "spec.coin",
+              "spec.polys", "spec.merkle", "spec.proof", "spec.verifier",
+              "spec.cairo_sim", "utils.tracing", "vm", "vm.mast",
+              "vm.stdlib", "vm.rescue", "sdk.pb.aero_pb2", "sdk.server",
+              "io.cairo_memory", "tools.generate_proof",
+              "tools.stark_parser", "tools.demo"):
         assert "aero_tpu_torch." + m in mods, m
 
 
@@ -39,22 +47,46 @@ def test_importing_every_module_leaves_jax_out():
     code = ("import sys, importlib\n"
             f"for m in {_modules()!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
-            "print('jax' in sys.modules, any(k.startswith('jax.') "
-            "for k in sys.modules))\n")
+            "print(sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'aero_tpu')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, check=True)
-    assert out.stdout.strip() == "False False"
+    assert out.stdout.strip() == "[]"
 
 
 def test_no_source_imports_jax():
-    pat = re.compile(r"^\s*(import jax|from jax)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|aero_tpu)(\.|\s)", re.M)
     paths = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, files in os.walk(PKG):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     for p in paths:
         with open(p) as f:
             assert not pat.search(f.read()), p
+
+
+def test_port_runs_with_aero_tpu_absent(tmp_path):
+    """A directory that holds the port and nothing of `aero_tpu`: the entry
+    points import, `generate_proof --cpu` writes a proof and `stark_parser`
+    parses it."""
+    os.symlink(PKG, tmp_path / "aero_tpu_torch")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = lambda *a: subprocess.run(
+        [sys.executable, *a], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=300)
+    res = run("-c", "import aero_tpu_torch.sdk, aero_tpu_torch.sdk.server, "
+              "aero_tpu_torch.tools.generate_proof, importlib.util as u; "
+              "print(u.find_spec('aero_tpu'))")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "None"
+    res = run("-m", "aero_tpu_torch.tools.generate_proof", "--cpu",
+              "--min-rows", "64", "--grind", "2", "--queries", "7",
+              "--out", "p.bin")
+    assert res.returncode == 0, res.stderr
+    assert "self-verification OK" in res.stdout
+    res = run("-m", "aero_tpu_torch.tools.stark_parser", "p.bin", "proof")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith('["0x48"')
 
 
 def test_scale_program_is_bench_long_fib_source():

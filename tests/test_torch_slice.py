@@ -15,6 +15,7 @@ single computation of the CPU lane, and --dist loadfile gives it a worker.
 import hashlib
 import json
 import os
+from dataclasses import asdict
 
 import pytest
 import torch
@@ -57,7 +58,9 @@ def _port_proof(min_rows):
 
 def test_miden_proof_bytes_equal_aero_tpu(jax_result):
     proof, pub = _port_proof(64)
-    assert pub == jax_result.native_pub
+    # each package has its own PublicInputs class: equal field by field
+    assert asdict(pub) == asdict(jax_result.native_pub)
+    assert pub.to_bytes() == jax_result.native_pub.to_bytes()
     assert proof.to_bytes() == jax_result.native_proof.to_bytes()
     air = MidenAir(64, pub, DEFAULT_OPTIONS, program=SRC)
     verify(StarkProof.from_bytes(proof.to_bytes()), pub, air=air)
@@ -65,7 +68,7 @@ def test_miden_proof_bytes_equal_aero_tpu(jax_result):
 
 def test_sdk_prove_returns_the_same_protobuf(jax_result):
     program, inputs = _request()
-    res = port_sdk.prove(program, inputs, min_rows=64)
+    res = port_sdk.prove(program, inputs, min_rows=64, device="cpu")
     assert res.proof.SerializeToString() == \
         jax_result.proof.SerializeToString()
     assert res.public_inputs.SerializeToString() == \
