@@ -24,7 +24,11 @@ options this package emits the same proof bytes.
               the wire converters, `ProofSubmissionService` and the HTTP
               submission server (`python -m aero_tpu_torch.sdk.server`).
 - `io`      — a proof re-encoded as Cairo-readable memory.
-- `tools`   — `python -m aero_tpu_torch.tools.{generate_proof,stark_parser,demo}`.
+- `tools`   — `python -m aero_tpu_torch.tools.{generate_proof,stark_parser,demo,
+              check_constraints,regen_dryrun_golden}`.
+- `parallel` — the multi-device path: a mesh of `torch.distributed` ranks,
+              the distributed NTT, the prover's stages on local blocks and
+              the dry-run pipeline (`python -m aero_tpu_torch.parallel.dryrun`).
 
 The package stands alone: it imports `torch`, `numpy` and the standard
 library, never `jax` and nothing of `aero_tpu`, and keeps its own copy of

@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_U32 = ctypes.c_uint32
 # entry point -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     # csrc/ntt.cu
@@ -39,7 +40,7 @@ SIGNATURES = {
     "blake2s_words": [_P, _I64, _I64, _I64, _P, _P],
     "blake2s_hash_columns": [_P, _I64, _I64, _P, _P],
     "blake2s_merge_level": [_P, _I64, _P, _P],
-    "blake2s_grind_pow": [_P, _I64, _I64, _I32, _P, _P],
+    "blake2s_grind_pow": [_U32] * 8 + [_I64, _I64, _I64, _I32, _P, _P, _P],
 }
 
 _lib = None

@@ -15,7 +15,8 @@
 //                         message would be 19 GB at 72 x 2^23);
 //   blake2s_merge_level   Merkle level (8, 2n) -> (8, n), 64-byte messages;
 //   blake2s_grind_pow     40-byte seed || u64le(nonce) messages; atomicMin
-//                         keeps the smallest nonce with enough leading zeros.
+//                         keeps the smallest nonce with enough leading zeros
+//                         (its design is described above `grind_kernel`).
 // Words travel as int64 tensors holding u32 values, like the plain PyTorch
 // versions in hash/blake2s.py.
 //
@@ -172,29 +173,105 @@ __global__ void merge_level_kernel(const u64* __restrict__ d, long long n,
   store_digest(h, out, n, i);
 }
 
-__global__ void grind_kernel(const u64* __restrict__ seed, long long base,
-                             long long count, int bits,
-                             unsigned long long* __restrict__ result) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  const unsigned long long nonce = (unsigned long long)(base + i);
-  unsigned h[8], m[16];
-  init_state(h);
+// The eight seed words of the proof-of-work message, passed by value: they
+// sit in the kernel's constant bank, so no upload and no tensor precedes
+// the launch and the compress reads them as immediate operands.
+struct GrindSeed {
+  unsigned w[8];
+};
+
+// Proof-of-work search over the nonces base .. base + count - 1. What
+// bounds it: the integer ALU work of one compress per nonce tried; the only
+// memory traffic is a few 8-byte words. What the design does about the
+// rest, which used to be 99 % of the call:
+//   - the seed travels as a kernel argument (above);
+//   - the grid is small and persistent (the launcher's `resident`
+//     threads): each block takes the next chunk of 256 consecutive nonces
+//     from a counter (state[2]) until the chunks run out, so the nonces are
+//     tried in increasing order whatever order the warps are scheduled in,
+//     with at most `resident` of them in flight. Two blocks an SM (16
+//     warps) already fill the integer pipes, the four G's of a half round
+//     being independent; more resident warps only stretch the time a chunk
+//     takes, and so the time until a hit is seen;
+//   - state[0], the result word, is ~0 between calls and atomicMin lowers it
+//     to the smallest qualifying nonce, so the answer is exact;
+//   - a block stops when the result is already below the first nonce of the
+//     chunk it was handed (every later chunk lies higher still). A launch
+//     sized for the unlucky case therefore costs what the data needs plus
+//     the chunks in flight, and no block is scheduled only to find it has
+//     nothing to do;
+//   - the last block to finish (a ticket from state[1]) writes the result
+//     straight into pinned host memory and puts the three state words back
+//     to their resting values. A call is therefore ONE stream operation: no
+//     memset before the kernel, no copy after it, and the host reads the
+//     word after one wait on the stream.
+// Two designs measured and dropped on an H100: one block per chunk (a 2^22
+// batch schedules 16 384 blocks at about 4 ns each, most of them only to
+// exit) and a grid-stride loop over passes of a wave (the oldest warps race
+// passes ahead of the warp that holds the hit, so the early exit comes
+// late); and this design with 8 blocks an SM instead of 2 (18.4 us against
+// 10.5-11.7 us at 16 bits, the same 48-50 us for a hit near 900 000).
+// Nothing of the compress is shared between nonces beyond its first 5 %:
+// the four column G's of round 1 read only seed words, but its diagonal
+// G's read the nonce (m[8], m[9]) and every later round mixes all sixteen
+// words, so each nonce pays the ten rounds and hoisting is not attempted.
+// With the seed in the constant bank the compiler needs 32 registers a
+// thread and spills nothing.
+__global__ void __launch_bounds__(256)
+grind_kernel(const GrindSeed seed, unsigned long long base,
+             unsigned long long count, int bits,
+             unsigned long long* __restrict__ state,
+             unsigned long long* __restrict__ host) {
+  __shared__ unsigned long long chunk_start;
+#pragma unroll 1
+  for (;;) {
+    if (threadIdx.x == 0) {
+      unsigned long long start = atomicAdd(state + 2, 1ull) * blockDim.x;
+      // past the end, or past a nonce that already qualifies: stop
+      if (start >= count ||
+          *(volatile unsigned long long*)state < base + start)
+        start = ~0ull;
+      chunk_start = start;
+    }
+    __syncthreads();
+    const unsigned long long start = chunk_start;
+    __syncthreads();
+    if (start == ~0ull) break;
+    const unsigned long long i = start + threadIdx.x;
+    if (i >= count) continue;
+    const unsigned long long nonce = base + i;
+    unsigned h[8], m[16];
+    init_state(h);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) m[j] = (unsigned)seed[j];
-  m[8] = (unsigned)nonce;
-  m[9] = (unsigned)(nonce >> 32);
+    for (int j = 0; j < 8; ++j) m[j] = seed.w[j];
+    m[8] = (unsigned)nonce;
+    m[9] = (unsigned)(nonce >> 32);
 #pragma unroll
-  for (int j = 10; j < 16; ++j) m[j] = 0u;
-  compress(h, m, 40u, true);
-  // leading zero bits of the first 16 digest bytes read big-endian
-  int lz = 0;
+    for (int j = 10; j < 16; ++j) m[j] = 0u;
+    compress(h, m, 40u, true);
+    // leading zero bits of the first 16 digest bytes read big-endian
+    int lz = 0;
 #pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    const unsigned be = __byte_perm(h[w], 0u, 0x0123);
-    if (lz == 32 * w) lz += be ? __clz(be) : 32;
+    for (int w = 0; w < 4; ++w) {
+      const unsigned be = __byte_perm(h[w], 0u, 0x0123);
+      if (lz == 32 * w) lz += be ? __clz(be) : 32;
+    }
+    if (lz >= bits) {
+      atomicMin(state, nonce);
+      __threadfence();
+    }
   }
-  if (lz >= bits) atomicMin(result, nonce);
+  // the last block out publishes the result and resets the state (every
+  // thread of the block has passed the loop's barrier, its atomicMin done)
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(state + 1, 1ull) == gridDim.x - 1) {
+      __threadfence();
+      *host = atomicExch(state, ~0ull);
+      state[1] = 0ull;
+      state[2] = 0ull;
+    }
+  }
 }
 
 inline unsigned grid_for(long long n) { return (unsigned)((n + 255) / 256); }
@@ -228,13 +305,29 @@ extern "C" int blake2s_merge_level(const void* d, long long n, void* out,
   return (int)cudaGetLastError();
 }
 
-// seed: 8 u32 words (as int64); nonces base .. base + count - 1; result: one
-// u64 that atomicMin lowers to the smallest qualifying nonce.
-extern "C" int blake2s_grind_pow(const void* seed, long long base,
-                                 long long count, int bits, void* result,
-                                 void* stream) {
-  if (count == 0) return (int)cudaSuccess;
-  grind_kernel<<<grid_for(count), 256, 0, (cudaStream_t)stream>>>(
-      (const u64*)seed, base, count, bits, (unsigned long long*)result);
+// One batch of the proof-of-work search, enqueued on `stream` as a single
+// kernel of at most `resident` threads: search the nonces base .. base + count
+// - 1 for the smallest one whose digest has `bits` leading zero bits and
+// write it (~0 if there is none) to `host`, one word of pinned host memory.
+// `state` is three device words that rest at {~0, 0, 0} between calls; the
+// kernel leaves them so. The call only enqueues: the caller waits for the
+// stream and then reads `host`, one launch and one wait. Calls that share
+// `state` must follow one another (the wrapper holds a lock from the launch
+// to the read).
+extern "C" int blake2s_grind_pow(unsigned s0, unsigned s1, unsigned s2,
+                                 unsigned s3, unsigned s4, unsigned s5,
+                                 unsigned s6, unsigned s7, long long base,
+                                 long long count, long long resident, int bits,
+                                 void* state, void* host, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (count <= 0 || resident <= 0) return (int)cudaErrorInvalidValue;
+  void* host_dev = nullptr;       // the pinned word as the device sees it
+  cudaError_t err = cudaHostGetDevicePointer(&host_dev, host, 0);
+  if (err != cudaSuccess) return (int)err;
+  const GrindSeed seed = {{s0, s1, s2, s3, s4, s5, s6, s7}};
+  grind_kernel<<<grid_for(count < resident ? count : resident), 256, 0,
+                 st>>>(
+      seed, (unsigned long long)base, (unsigned long long)count, bits,
+      (unsigned long long*)state, (unsigned long long*)host_dev);
   return (int)cudaGetLastError();
 }

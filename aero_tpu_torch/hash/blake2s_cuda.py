@@ -10,13 +10,16 @@ counts the kernel launches of each entry point.
 
 from __future__ import annotations
 
+import struct
+import threading
+
 import torch
 
 from .. import _build
 from .blake2s import (blake2s_words as blake2s_words_plain,
                       hash_columns_t as hash_columns_plain,
                       merge_level_t as merge_level_plain,
-                      grind_pow as grind_pow_plain, seed_words)
+                      grind_pow as grind_pow_plain)
 
 LAUNCHES = {"blake2s_words": 0, "blake2s_hash_columns": 0,
             "blake2s_merge_level": 0, "blake2s_grind_pow": 0}
@@ -82,25 +85,104 @@ def merge_level(d: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def grind_pow(seed: bytes, grinding_bits: int, device,
-              batch: int = 1 << 20) -> int:
+# One wave of the card: 132 SMs x 2048 threads; no batch is smaller. The
+# kernel's own grid is RESIDENT threads, two blocks of 256 an SM, which take
+# a batch chunk by chunk: that fills the integer pipes, and a hit is seen
+# sooner than with more warps sharing an SM (measured on an H100).
+WAVE = 132 * 2048
+RESIDENT = 132 * 512
+MAX_BATCH = 1 << 28             # a batch without a hit ends in about 12 ms
+NOT_FOUND = (1 << 64) - 1       # the result word when no nonce qualified
+
+
+def grind_batches(grinding_bits: int, wave: int = WAVE):
+    """The (base, count) batches of the search, in increasing nonce order.
+    A batch holds about 4 x 2^bits nonces (the first one then has a hit
+    with probability 1 - e^-4 = 98 %), at least one wave, in whole blocks of
+    256; the kernel stops handing out nonces past a hit, so an oversized
+    batch costs nothing. Every batch has the same size."""
+    count = min(max(4 << grinding_bits, wave), MAX_BATCH)
+    count = -(-count // 256) * 256
+    base = 0
+    while True:
+        yield base, count
+        base += count
+
+
+def grind_search(batches, run_batch) -> int:
+    """Walk `batches` in order; `run_batch(base, count)` returns the smallest
+    qualifying nonce of its batch or NOT_FOUND. Batches are disjoint and
+    increasing, so the first batch with a hit holds the global minimum."""
+    for base, count in batches:
+        found = run_batch(base, count)
+        if found != NOT_FOUND:
+            return found
+    raise RuntimeError("grind_search: the batches ran out without a hit")
+
+
+_GRIND_WORDS: dict = {}
+# One search at a time in a process: the state words are shared by every
+# call on a device, so the launch, the wait and the read of the pinned word
+# are one critical section (`grind_batch`).
+_GRIND_LOCK = threading.Lock()
+
+
+def _grind_words(device: torch.device):
+    """The kernel's three state words on the card (the result, resting at
+    ~0, and the ticket and chunk counters, resting at 0) and the pinned
+    host word the result lands in: allocated once per device and reused by
+    every call. The kernel puts the state back itself."""
+    device = torch.device("cuda", torch.cuda.current_device()
+                          if device.index is None else device.index)
+    if device not in _GRIND_WORDS:
+        _GRIND_WORDS[device] = (
+            torch.tensor([-1, 0, 0], dtype=torch.int64, device=device),
+            torch.empty(1, dtype=torch.int64).pin_memory())
+    return _GRIND_WORDS[device]
+
+
+def grind_launch(seed: bytes, grinding_bits: int, device: torch.device,
+                 base: int, count: int) -> torch.Tensor:
+    """Enqueue one batch of the search on the card, one kernel and nothing
+    else on the stream: the seed goes by value and the kernel's last block
+    writes the batch's smallest qualifying nonce (NOT_FOUND if none) into
+    pinned host memory. Returns that pinned tensor, valid once the stream
+    has drained. Launches on one device share their state, so they must
+    follow one another: `grind_batch` is the call that sees to it."""
+    if count <= 0 or len(seed) != 32:
+        raise ValueError("grind_launch: an empty batch, or a seed that is "
+                         "not a 32-byte digest")
+    state, host = _grind_words(device)
+    _build.launch("blake2s_grind_pow", *struct.unpack("<8I", seed), base,
+                  count, RESIDENT, grinding_bits, state.data_ptr(),
+                  host.data_ptr(),
+                  torch.cuda.current_stream(device).cuda_stream)
+    LAUNCHES["blake2s_grind_pow"] += 1
+    return host
+
+
+def grind_batch(seed: bytes, grinding_bits: int, device: torch.device,
+                base: int, count: int) -> int:
+    """The smallest qualifying nonce of base .. base + count - 1, or
+    NOT_FOUND: one launch, one wait on the stream and one read, under the
+    lock, so threads and streams of one process cannot mix their results."""
+    with _GRIND_LOCK:
+        host = grind_launch(seed, grinding_bits, device, base, count)
+        torch.cuda.current_stream(device).synchronize()
+        return int(host[0]) & NOT_FOUND
+
+
+def grind_pow(seed: bytes, grinding_bits: int, device) -> int:
     """Minimal nonce with >= grinding_bits leading zero bits in
-    blake2s(seed || u64le(nonce)). Batches run in increasing nonce order
-    and atomicMin keeps each batch's smallest hit, so the first batch with
-    a hit holds the global minimum."""
+    blake2s(seed || u64le(nonce)). One call is, in the usual case, one
+    launch and one wait (`grind_batches`, `grind_batch`)."""
     device = torch.device(device)
     if device.type == "cpu":
         return grind_pow_plain(seed, grinding_bits, device)
     if device.type != "cuda":
         raise ValueError(f"grind_pow: unsupported device {device}")
-    sw = torch.tensor(seed_words(seed), dtype=torch.int64, device=device)
-    result = torch.full((1,), -1, dtype=torch.int64, device=device)
-    base = 0
-    while True:
-        _build.launch("blake2s_grind_pow", sw.data_ptr(), base, batch,
-                      grinding_bits, result.data_ptr(), _stream(sw))
-        LAUNCHES["blake2s_grind_pow"] += 1
-        found = int(result.item())
-        if found != -1:
-            return found
-        base += batch
+
+    return grind_search(
+        grind_batches(grinding_bits),
+        lambda base, count: grind_batch(seed, grinding_bits, device, base,
+                                        count))

@@ -70,32 +70,95 @@ def _frag(x: torch.Tensor, a: int, m_frag: int) -> torch.Tensor:
     return torch.cat([x[..., a:], x[..., :m_frag - (m - a)]], dim=-1)
 
 
+def ceval_domain(air: Air, device, first: int = 0,
+                 length: Optional[int] = None) -> tuple:
+    """Transcript-independent constraint-eval inputs over the LDE-domain
+    points first .. first + length - 1 (the whole domain by default): x,
+    the transition-divisor inverse and the boundary-divisor inverses (one
+    row per distinct assertion point). `first` and `length` are multiples
+    of the blowup, the period of 1 / (x^n - 1) along the domain."""
+    n = air.trace_length
+    blowup = air.options.blowup_factor
+    length = n * blowup if length is None else length
+    if first % blowup or length % blowup:
+        raise ValueError("ceval_domain: the range must be whole periods")
+    offset = F.DOMAIN_OFFSET
+    g_trace = air.trace_generator
+    w_lde = air.lde_generator
+    wn, on = F.exp(w_lde, n), F.exp(offset, n)
+    # 1 / (x^n - 1) takes `blowup` values, periodic in the position
+    zt_vals = F.batch_inv([F.sub(F.mul(on, F.exp(wn, t)), 1)
+                           for t in range(blowup)])
+    points = tuple(sorted({F.exp(g_trace, a.step)
+                           for a in air.get_assertions()}))
+    x_dom = power_series(w_lde, length, F.mul(offset, F.exp(w_lde, first)),
+                         device)
+    shifted = sub(x_dom, scalar(F.exp(g_trace, n - 1), device))
+    zt_inv = mul(shifted.reshape(length // blowup, blowup),
+                 _vec(zt_vals, device)).reshape(length)
+    denom = torch.stack([sub(x_dom, scalar(p, device)) for p in points])
+    return x_dom, zt_inv, batch_inv(denom, axis=-1), points
+
+
 def _ceval_static(air: Air, device) -> tuple:
-    """Transcript-independent constraint-eval inputs, cached per air and
-    device: x over the LDE domain, the transition-divisor inverse and the
-    boundary-divisor inverses (one row per distinct assertion point)."""
+    """`ceval_domain` over the whole domain, cached per air and device."""
     cache = air.__dict__.setdefault("_prover_cache", {})
     key = ("ceval_static", str(device))
     if key not in cache:
-        n = air.trace_length
-        blowup = air.options.blowup_factor
-        m = n * blowup
-        offset = F.DOMAIN_OFFSET
-        g_trace = air.trace_generator
-        w_lde = air.lde_generator
-        wn, on = F.exp(w_lde, n), F.exp(offset, n)
-        # 1 / (x^n - 1) takes `blowup` values, periodic in the position
-        zt_vals = F.batch_inv([F.sub(F.mul(on, F.exp(wn, t)), 1)
-                               for t in range(blowup)])
-        points = tuple(sorted({F.exp(g_trace, a.step)
-                               for a in air.get_assertions()}))
-        x_dom = power_series(w_lde, m, offset, device)
-        shifted = sub(x_dom, scalar(F.exp(g_trace, n - 1), device))
-        zt_inv = mul(shifted.reshape(m // blowup, blowup),
-                     _vec(zt_vals, device)).reshape(m)
-        denom = torch.stack([sub(x_dom, scalar(p, device)) for p in points])
-        cache[key] = (x_dom, zt_inv, batch_inv(denom, axis=-1), points)
+        cache[key] = ceval_domain(air, device)
     return cache[key]
+
+
+class ConstraintMerger:
+    """The random linear combination of all constraint evaluations over a
+    range of the LDE domain, evaluated fragment by fragment: one fragment's
+    temporaries (hundreds of flag and product arrays) bound the peak
+    memory. Constraints are local (nxt = +blowup positions), so the result
+    is that of one evaluation over the whole range."""
+
+    def __init__(self, air: Air, aux_rand, cc_transition, cc_boundary,
+                 domain: tuple, device):
+        self.air = air
+        self.x_dom, self.zt_inv, self.denom_inv, points = domain
+        g_trace = air.trace_generator
+        assertions = air.get_assertions()
+        point_row = {p: i for i, p in enumerate(points)}
+        self.t_adjust = air.transition_adjustments()
+        self.b_adjust = air.boundary_adjustments()
+        self.asrt_route = [(a.column < air.main_width,
+                            a.column if a.column < air.main_width
+                            else a.column - air.main_width,
+                            point_row[F.exp(g_trace, a.step)])
+                           for a in assertions]
+        self.cc_t = from_u64(np.array(cc_transition, dtype=np.uint64), device)
+        self.cc_b = from_u64(np.array(cc_boundary, dtype=np.uint64), device)
+        self.bvals = _vec([a.value for a in assertions], device)
+        self.rands = [int(r) % F.P for r in aux_rand]
+
+    def fragment(self, main_cur, main_nxt, aux_cur, aux_nxt,
+                 a0: int) -> torch.Tensor:
+        """The merged evaluations of the `m_frag` points from position a0
+        of the range; cur and nxt are (width, m_frag) frames."""
+        m_frag = main_cur.shape[-1]
+        sl = slice(a0, a0 + m_frag)
+        t_evals = self.air.evaluate_transitions(main_cur, main_nxt, aux_cur,
+                                                aux_nxt, self.rands)
+        x_frag = self.x_dom[sl]
+        xp: Dict[int, torch.Tensor] = {}
+        for adj in set(self.t_adjust) | set(self.b_adjust):
+            xp[adj] = pow_loop(x_frag, adj)
+        merged = torch.zeros(m_frag, dtype=torch.int64, device=x_frag.device)
+        zt_f = self.zt_inv[sl]
+        for i, (ev, adj) in enumerate(zip(t_evals, self.t_adjust)):
+            k = add(self.cc_t[i, 0], mul(xp[adj], self.cc_t[i, 1]))
+            merged = add(merged, mul(mul(k, ev), zt_f))
+        for j, ((is_main, c, prow), adj) in enumerate(zip(self.asrt_route,
+                                                          self.b_adjust)):
+            col = main_cur[c] if is_main else aux_cur[c]
+            ev = sub(col, self.bvals[j])
+            k = add(self.cc_b[j, 0], mul(xp[adj], self.cc_b[j, 1]))
+            merged = add(merged, mul(mul(k, ev), self.denom_inv[prow, sl]))
+        return merged
 
 
 # ------------------------------------------------------------- prover state
@@ -195,7 +258,6 @@ def stage_constraint_eval(air: Air, st: ProverState) -> None:
     m = n * blowup
     ce = air.ce_blowup
     offset = F.DOMAIN_OFFSET
-    g_trace = air.trace_generator
     device = st.main_lde.device
 
     # rand-dependent assertions (MidenAir's ROM product) need the aux
@@ -207,53 +269,21 @@ def stage_constraint_eval(air: Air, st: ProverState) -> None:
     cc_boundary = [st.coin.draw_pair() for _ in range(air.num_assertions)]
 
     with span("constraint_prelude"):
-        x_dom, zt_inv, denom_inv, points = _ceval_static(air, device)
-        assertions = air.get_assertions()
-        point_row = {p: i for i, p in enumerate(points)}
-        t_adjust = air.transition_adjustments()
-        b_adjust = air.boundary_adjustments()
-        asrt_route = [(a.column < air.main_width,
-                       a.column if a.column < air.main_width
-                       else a.column - air.main_width,
-                       point_row[F.exp(g_trace, a.step)])
-                      for a in assertions]
-        cc_t = from_u64(np.array(cc_transition, dtype=np.uint64), device)
-        cc_b = from_u64(np.array(cc_boundary, dtype=np.uint64), device)
-        bvals = _vec([a.value for a in assertions], device)
-        rands = [int(r) % F.P for r in st.aux_rand]
+        merger = ConstraintMerger(air, st.aux_rand, cc_transition,
+                                  cc_boundary, _ceval_static(air, device),
+                                  device)
 
-    # evaluated in fragments of the domain: one fragment's temporaries
-    # (hundreds of flag and product arrays) bound the peak memory;
-    # constraints are local (nxt = +blowup positions), so the result is
-    # that of one whole-domain evaluation
     m_frag = min(m, FRAG)
     parts = []
     with span("frag_eval", n_frags=m // m_frag):
         for a0 in range(0, m, m_frag):
-            main_cur = _frag(st.main_lde, a0, m_frag)
-            aux_cur = (_frag(st.aux_lde, a0, m_frag)
-                       if st.aux_lde is not None else None)
-            t_evals = air.evaluate_transitions(
-                main_cur, _frag(st.main_lde, a0 + blowup, m_frag), aux_cur,
+            parts.append(merger.fragment(
+                _frag(st.main_lde, a0, m_frag),
+                _frag(st.main_lde, a0 + blowup, m_frag),
+                _frag(st.aux_lde, a0, m_frag)
+                if st.aux_lde is not None else None,
                 _frag(st.aux_lde, a0 + blowup, m_frag)
-                if st.aux_lde is not None else None, rands)
-            x_frag = x_dom[a0:a0 + m_frag]
-            xp: Dict[int, torch.Tensor] = {}
-            for adj in set(t_adjust) | set(b_adjust):
-                xp[adj] = pow_loop(x_frag, adj)
-            merged = torch.zeros(m_frag, dtype=torch.int64, device=device)
-            zt_f = zt_inv[a0:a0 + m_frag]
-            for i, (ev, adj) in enumerate(zip(t_evals, t_adjust)):
-                k = add(cc_t[i, 0], mul(xp[adj], cc_t[i, 1]))
-                merged = add(merged, mul(mul(k, ev), zt_f))
-            for j, ((is_main, c, prow), adj) in enumerate(zip(asrt_route,
-                                                              b_adjust)):
-                col = main_cur[c] if is_main else aux_cur[c]
-                ev = sub(col, bvals[j])
-                k = add(cc_b[j, 0], mul(xp[adj], cc_b[j, 1]))
-                merged = add(merged,
-                             mul(mul(k, ev), denom_inv[prow, a0:a0 + m_frag]))
-            parts.append(merged)
+                if st.aux_lde is not None else None, a0))
         merged = torch.cat(parts)
 
     with span("composition_intt_lde"):

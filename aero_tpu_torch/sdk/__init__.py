@@ -19,9 +19,8 @@ import hashlib
 from dataclasses import dataclass
 from typing import Optional
 
-import torch
-
 from .pb import aero_pb2 as pb
+from .._device import resolve_device
 from ..spec.proof import (ProofOptions, PublicInputs, StarkProof,
                           bytes_to_felts, felts_to_bytes)
 from ..utils import span
@@ -168,16 +167,6 @@ class ProveResult:
     native_proof: StarkProof
     native_pub: PublicInputs
 
-def _resolve_device(device) -> torch.device:
-    """`None` is the CUDA card, and raises where there is none."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "aero_tpu_torch proves on a CUDA card and found none; pass "
-            "device='cpu' to prove on the CPU")
-    return torch.device("cuda")
-
 
 def prove(program: pb.MidenProgram, inputs: pb.MidenProgramInputs,
           options: Optional[pb.ProofOptions] = None, min_rows: int = 64,
@@ -189,7 +178,7 @@ def prove(program: pb.MidenProgram, inputs: pb.MidenProgramInputs,
     from ..prover import prove as run_prover
     from ..vm import execute_full, program_hash
 
-    device = _resolve_device(device)
+    device = resolve_device(device)
     opts = options_from_pb(options) if options is not None \
         else DEFAULT_OPTIONS
     stack_init = list(inputs.stack_init)

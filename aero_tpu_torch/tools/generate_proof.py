@@ -24,12 +24,12 @@ def generate(n: int = 10, out: str = "proofs/fib.bin", min_rows: int = 1024,
     from ..air.miden import MidenAir, make_public_inputs
     from ..field import from_u64
     from ..prover import prove
-    from ..sdk import _resolve_device
+    from .._device import resolve_device
     from ..spec.proof import ProofOptions, dump_proof_file
     from ..spec.verifier import verify
     from ..vm import execute, fibonacci_source, program_hash
 
-    device = _resolve_device(device)
+    device = resolve_device(device)
     src = fibonacci_source(n)
     t0 = time.time()
     trace, out_stack = execute(src, [0, 1], min_rows=min_rows)

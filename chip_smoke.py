@@ -5,7 +5,7 @@
 
 Needs one CUDA card, `nvcc` and `cuobjdump`; builds the kernels from
 `aero_tpu_torch/csrc` and the C++ VM from `aero_tpu_torch/vm/core` at first
-use. It imports the port only. Set-up, then six phases, each of which raises
+use. It imports the port only. Set-up, then seven phases, each of which raises
 on a failed check (so the script exits non-zero):
 
   0. card name, power limit and clocks, torch/CUDA versions, kernel and VM
@@ -24,7 +24,19 @@ on a failed check (so the script exits non-zero):
      2^20-row proof (same receipt twice) and the golden proof, refuses a
      tampered nonce and answers garbage with HTTP 400;
   6. the parser path: `generate_proof` on the card writes a .bin, the
-     parser re-encodes it as Cairo memory and `cairo_sim` accepts it.
+     parser re-encodes it as Cairo memory and `cairo_sim` accepts it;
+  7. the multi-device path: the dry-run pipeline of `parallel/` (`MidenAir`,
+     72 + 9 columns, 112 constraints, blowup 8, folding 8) at 64 rows
+     against the committed golden roots and at 2^18 rows (a real trace, a
+     2^21-point domain) against the single-device pipeline run on the card
+     here. The machine has one card, so the mesh is driven two ways and the
+     lines say which: world 1 on `nccl` (every exchange a copy, every launch
+     and reshape real), and world 4 as four processes sharing the card with
+     the exchanges staged through pinned host memory and gloo, asked for by
+     name (`exchange="host"`). First each kernel is held against its plain
+     version at every shape the 2^18-row runs hand it. Prints the roots,
+     each rank's seconds per stage, the bytes each kind of exchange moved
+     and the launches per kernel; a mismatch or a dead rank raises.
 
 Kernel comparisons are exact (tolerance 0): finite-field and hash
 arithmetic. Launch counters are reset right before each proof and read
@@ -106,6 +118,23 @@ def cuda_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_queued(fn, iters: int, busy) -> float:
+    """Mean device time of fn() over `iters` runs enqueued behind `busy()`,
+    device work that outlasts the enqueuing: the runs then follow one
+    another on the card and the host's enqueue rate does not count."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    busy()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def host_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -170,7 +199,11 @@ def read_sass_counts(lib) -> dict:
     fns = _sass.parse_functions(_sass.dump_sass(lib))
     merge = _sass.count_instructions(
         _sass.find_function(fns, "merge_level_kernel"))
-    grind = _sass.count_instructions(_sass.find_function(fns, "grind_kernel"))
+    grind_loops = _sass.loops(_sass.find_function(fns, "grind_kernel"))
+    check(bool(grind_loops), "grind_kernel has its loop over passes")
+    grind = _sass.count_instructions(max(grind_loops, key=len))
+    check(grind.total <= 1.25 * merge.total,
+          "the grind loop holds one compress per trip")
     leaf_loops = _sass.loops(_sass.find_function(fns, "hash_columns_kernel"))
     check(bool(leaf_loops), "hash_columns_kernel has its compress loop")
     leaf = _sass.count_instructions(max(leaf_loops, key=len))
@@ -243,26 +276,79 @@ def phase_blake2s(dev, rng, kernels, sass, clock_hz) -> None:
     log(f"[phase 1] merge_level 2^17 -> 2^16: kernel {ms:.3f} ms, "
         f"plain {pms:.3f} ms, max_abs_err {err}")
 
-    for s in range(2):
-        seed = hashlib.blake2s(f"chip-smoke-seed-{s}".encode()).digest()
-        nonce = bc.grind_pow(seed, 16, dev)
-        plain = bc.grind_pow_plain(seed, 16, dev)
-        host = 0
-        while 128 - int.from_bytes(merge_with_int(seed, host)[:16],
-                                   "big").bit_length() < 16:
-            host += 1
-        check(nonce == plain == host, f"grind_pow seed {s}: kernel {nonce},"
-              f" plain {plain}, host scan {host}")
-        ms = host_ms(lambda: bc.grind_pow(seed, 16, dev))
-        pms = host_ms(lambda: bc.grind_pow_plain(seed, 16, dev))
-        log(f"[phase 1] grind_pow 16 bits seed {s}: nonce {nonce} (kernel =="
-            f" plain == host scan); kernel {ms:.3f} ms, plain {pms:.3f} ms")
-        if s == 0:
-            # the data needs nonce + 1 hashes; a launch tries 2^20 nonces
-            record(kernels, "blake2s_grind_pow",
-                   "16 bits, batches of 2^20 nonces (host clock)",
-                   abs(nonce - host), ms, pms, 64 + 8, host + 1,
+    def qualifies(seed, nonce, bits):
+        d = merge_with_int(seed, nonce)
+        return 128 - int.from_bytes(d[:16], "big").bit_length() >= bits
+
+    # 16 bits is the proof's setting (one batch of one wave); 20 bits takes
+    # batches of 2^22 nonces that the kernel stops handing out after the hit
+    ballast = torch.zeros(1 << 27, dtype=torch.int64, device=dev)
+
+    def busy():                     # about 6 ms of device work
+        for _ in range(8):
+            ballast.add_(1)
+
+    for bits, n_seeds in ((16, 4), (20, 3)):
+        for s in range(n_seeds):
+            seed = hashlib.blake2s(f"chip-smoke-seed-{s}".encode()).digest()
+            nonce = bc.grind_pow(seed, bits, dev)
+            plain = bc.grind_pow_plain(seed, bits, dev)
+            check(nonce == plain and qualifies(seed, nonce, bits),
+                  f"grind_pow {bits} bits seed {s}: kernel {nonce}, plain "
+                  f"{plain}")
+            if bits == 16:
+                host = next(i for i in range(nonce + 1)
+                            if qualifies(seed, i, bits))
+                check(nonce == host, f"grind_pow seed {s}: kernel {nonce}, "
+                      f"host scan {host}")
+            # the batches this seed needs; the hashes the data cannot avoid
+            # are the nonces up to the hit
+            batches = []
+            for base, count in bc.grind_batches(bits):
+                batches.append((base, count))
+                if nonce < base + count:
+                    break
+            count = batches[-1][1]
+            hashes = nonce + 1
+
+            def launches():
+                for b, c in batches:
+                    bc.grind_launch(seed, bits, dev, b, c)
+            ms = cuda_ms_queued(launches, 20, busy)
+            calls = 20
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                bc.grind_pow(seed, bits, dev)
+            call_ms = (time.perf_counter() - t0) * 1e3 / calls
+            pms = host_ms(lambda: bc.grind_pow_plain(seed, bits, dev))
+            log(f"[phase 1] grind_pow {bits} bits seed {s}: nonce {nonce} "
+                f"(kernel == plain" + (" == host scan" if bits == 16 else "")
+                + f"), {len(batches)} batch(es) of {count}; device "
+                f"{ms * 1e3:.1f} us (CUDA events around the kernel), whole "
+                f"call {call_ms * 1e3:.1f} us on the host clock, plain "
+                f"{pms:.3f} ms")
+            keep = bits == 16 and s == 0
+            record(kernels, "blake2s_grind_pow" if keep else None,
+                   f"{bits} bits, {len(batches)} batch(es) of {count} nonces "
+                   f"(device time; the whole call takes {call_ms:.4f} ms on "
+                   f"the host clock)", abs(nonce - plain), ms, pms, 24, hashes,
                    sass["compress_grind"], clock_hz)
+            if keep:
+                kernels["blake2s_grind_pow"]["host_ms"] = call_ms
+
+
+def plain_chunks(fn, src, ratio, out, chunk: int = 1 << 20):
+    """max_abs_err of `out` against fn over column chunks of `src`
+    (`ratio` input columns per output column), and the plain time."""
+    err = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in range(0, out.shape[1], chunk):
+        p = fn(src[:, ratio * a:ratio * (a + chunk)].contiguous())
+        err = max(err, max_abs_err(out[:, a:a + chunk], p))
+    torch.cuda.synchronize()
+    return err, (time.perf_counter() - t0) * 1e3
 
 
 def phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz) -> None:
@@ -272,19 +358,6 @@ def phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz) -> None:
     from aero_tpu_torch.hash import blake2s_cuda as bc
     from aero_tpu_torch.spec.hashing import hash_elements
     n = 1 << LOG_LDE
-    chunk = 1 << 20
-
-    def plain_chunks(fn, src, ratio, out):
-        """max_abs_err of `out` against fn over column chunks of `src`
-        (`ratio` input columns per output column), and the plain time."""
-        err = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for a in range(0, out.shape[1], chunk):
-            p = fn(src[:, ratio * a:ratio * (a + chunk)].contiguous())
-            err = max(err, max_abs_err(out[:, a:a + chunk], p))
-        torch.cuda.synchronize()
-        return err, (time.perf_counter() - t0) * 1e3
 
     for w in (72, 9):
         cols = device_felts((w, n), gen, dev)
@@ -609,6 +682,179 @@ def phase_parser(dev) -> None:
         f"in {time.perf_counter() - t0:.3f} s")
 
 
+DRYRUN_KERNELS = ("gl_colntt", "blake2s_hash_columns", "blake2s_merge_level")
+LOG_DRYRUN_ROWS = 18
+DRYRUN_WORLDS = (1, 4)
+
+
+def dryrun_kernel_shapes(world):
+    """What one rank of a `world`-rank dry run at 2^LOG_DRYRUN_ROWS rows
+    hands the kernels: the local transforms (rows, size, inverse) of every
+    distributed NTT, and the (columns, leaves) of every leaf hashing.
+    `world` None is the single-device pipeline: whole transforms."""
+    from aero_tpu_torch.parallel.dist_ntt import split_sizes
+    rows, m = 1 << LOG_DRYRUN_ROWS, 8 << LOG_DRYRUN_ROWS
+    transforms = []
+    # main and aux LDE; the composition's iNTT and the LDE of its 8
+    # columns; the fold's iNTT and the NTT of the folded layer
+    for w, n, inv in ((72, rows, True), (72, m, False), (9, rows, True),
+                      (9, m, False), (1, m, True), (8, m, False),
+                      (1, m // 8, False)):
+        if world is None:
+            transforms.append((w, n, inv))
+            continue
+        k1, k2, l1, l2 = split_sizes(n, world)
+        for shape in ((w * l1, k2, inv), (w * l2, k1, inv)):
+            if shape not in transforms:
+                transforms.append(shape)
+    D = world or 1
+    leaves = [(72, m // D), (9, m // D), (8, m // D),
+              (8, m // 64 // D)]            # main, aux, constraint, fold
+    return transforms, leaves
+
+
+def phase_dryrun_shapes(dev, gen) -> None:
+    """Each kernel against its plain version at the shapes the 2^18-row dry
+    run launches, for world 1 and world 4, before the dry run is driven."""
+    from aero_tpu_torch.hash import blake2s_cuda as bc
+    from aero_tpu_torch.ntt.ntt_cuda import ntt_cuda, ntt_four_step_plain
+    seen = set()
+    for world in (None,) + DRYRUN_WORLDS:
+        transforms, leaves = dryrun_kernel_shapes(world)
+        who = f"world {world}" if world else "the single device"
+        for shape in transforms:
+            if shape in seen:
+                continue
+            seen.add(shape)
+            B, n, inv = shape
+            x = device_felts((B, n), gen, dev)
+            k = ntt_cuda(x, inv)
+            step = max(1, (1 << 26) // n)       # rows a plain call takes
+            err = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a in range(0, B, step):
+                err = max(err, max_abs_err(
+                    k[a:a + step], ntt_four_step_plain(x[a:a + step], inv)))
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            check(err == 0, f"gl_colntt {B} x {n} inverse={inv} kernel == "
+                  "four-step plain")
+            del k
+            ms = cuda_ms(lambda: ntt_cuda(x, inv), iters=2)
+            log(f"[phase 7] shapes of {who}: "
+                f"{'intt' if inv else 'ntt'} {B} x {n}: kernel {ms:.3f} ms, "
+                f"four-step plain {pms:.3f} ms, max_abs_err {err}")
+            del x
+        for shape in leaves:
+            if shape in seen:
+                continue
+            seen.add(shape)
+            w, n = shape
+            cols = device_felts(shape, gen, dev)
+            k = bc.hash_columns(cols)
+            err, pms = plain_chunks(bc.hash_columns_plain, cols, 1, k)
+            check(err == 0, f"hash_columns {w} x {n} kernel == plain")
+            ms = cuda_ms(lambda: bc.hash_columns(cols), iters=2)
+            log(f"[phase 7] shapes of {who}: hash_columns {w} x {n}: "
+                f"kernel {ms:.3f} ms, plain {pms:.3f} ms, max_abs_err {err}")
+            del cols, k
+    # every merge of every commit, whatever the world: a block's levels, the
+    # fold's and the top of the tree over the gathered digests are all
+    # (8, 2n) -> (8, n) with 2n a power of two up to the whole domain
+    d = torch.randint(0, 1 << 32, (8, 8 << LOG_DRYRUN_ROWS), generator=gen,
+                      device=dev, dtype=torch.int64)
+    worst, levels = 0, 0
+    while d.shape[1] > 1:
+        k = bc.merge_level(d)
+        err, _ = plain_chunks(bc.merge_level_plain, d, 2, k)
+        check(err == 0, f"merge_level {d.shape[1]} -> {k.shape[1]} kernel == "
+              "plain")
+        worst, levels, d = max(worst, err), levels + 1, k
+    log(f"[phase 7] shapes of every world: merge_level at each of the "
+        f"{levels} levels from 2^{LOG_DRYRUN_ROWS + 3} digests down to the "
+        f"root: kernel == plain, max_abs_err {worst}")
+
+
+def phase_dryrun(dev, gen, kernels) -> None:
+    """The sharded stages end to end, world 1 on nccl and world 4 sharing
+    the card, at 64 rows and at 2^18 rows; first the kernels against their
+    plain versions at the shapes of the 2^18-row runs."""
+    from aero_tpu_torch.parallel import dryrun as dr
+
+    phase_dryrun_shapes(dev, gen)
+    torch.cuda.empty_cache()
+
+    def report(what, out, want, rows):
+        check(out.matches_single_device
+              and [list(r) for r in out[:4]] == want,
+              f"{what}: roots equal the reference")
+        for name, root in zip(dr.ROOT_NAMES, out[:4]):
+            log(f"[phase 7] {what}: {name}_root {dr.root_hex(root)}")
+        total = {}
+        for r in out.ranks:
+            check(r["rows"] == rows, f"{what}: the trace has {rows} rows")
+            for name in DRYRUN_KERNELS:
+                check(r["launches"][name] > 0,
+                      f"{what}: rank {r['rank']} launched {name}")
+            for k, v in r["launches"].items():
+                total[k] = total.get(k, 0) + v
+            log(f"[phase 7] {what} rank {r['rank']}: set-up "
+                f"{r['setup_seconds']:.3f} s; stage seconds "
+                + json.dumps(r["seconds"]) + "; exchanges [calls, bytes "
+                "sent] " + json.dumps(r["traffic"]) + "; launches "
+                + json.dumps(r["launches"]) + f"; peak device memory "
+                f"{r['peak_device_bytes']} B")
+        return total
+
+    with open(dr.GOLDEN_PATH) as f:
+        golden = json.load(f)["roots"]
+    meshes = ((1, "device", "world 1, nccl"),
+              (4, "host", "world 4, four processes sharing the card, "
+               "exchange through pinned host memory and gloo"))
+    check(tuple(m[0] for m in meshes) == DRYRUN_WORLDS,
+          "the shapes were checked for the worlds that are driven")
+    for world, exchange, how in meshes:
+        t0 = time.perf_counter()
+        out = dr.dryrun_prove_core(world, 64, device=dev, exchange=exchange,
+                                   reference=golden, timeout_s=300)
+        report(f"64 rows, {how}", out, golden, 64)
+        log(f"[phase 7] 64 rows, {how}: equal to the committed golden roots;"
+            f" {time.perf_counter() - t0:.3f} s with the start of the ranks")
+
+    rows = 1 << LOG_DRYRUN_ROWS
+    src = long_fib_source((rows - 64) // 12)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    single = dr.single_device_dryrun(rows, dev, src, [0, 1])
+    check(single["rows"] == rows, f"the dry-run trace has 2^{LOG_DRYRUN_ROWS}"
+          " rows")
+    for name, root in zip(dr.ROOT_NAMES, single["roots"]):
+        log(f"[phase 7] 2^{LOG_DRYRUN_ROWS} rows, single device: {name}_root "
+            f"{dr.root_hex(root)}")
+    log(f"[phase 7] 2^{LOG_DRYRUN_ROWS} rows, single device: set-up "
+        f"{single['setup_seconds']:.3f} s; stage seconds "
+        + json.dumps(single["seconds"]) + "; launches "
+        + json.dumps(single["launches"]) + "; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    torch.cuda.empty_cache()
+    for world, exchange, how in meshes:
+        t0 = time.perf_counter()
+        out = dr.dryrun_prove_core(world, rows, device=dev,
+                                   exchange=exchange,
+                                   reference=single["roots"], source=src,
+                                   inputs=[0, 1], timeout_s=600)
+        total = report(f"2^{LOG_DRYRUN_ROWS} rows, {how}", out,
+                       single["roots"], rows)
+        log(f"[phase 7] 2^{LOG_DRYRUN_ROWS} rows, {how}: equal to the "
+            f"single-device roots; {time.perf_counter() - t0:.3f} s with the "
+            "start of the ranks")
+        check(total["blake2s_grind_pow"] == 0,
+              "the dry run has no proof of work and launches no grind")
+        for name in PATH_KERNELS:
+            kernels[name][f"launches_dryrun_world{world}"] = total[name]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -661,11 +907,14 @@ def main() -> int:
     scale_res = phase_scale(dev, kernels)
     phase_served(scale_res, golden_res)
     phase_parser(dev)
+    phase_dryrun(dev, gen, kernels)
 
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launches_dryrun_world1", "launches_dryrun_world4")
     print(json.dumps({"kernels": [
-        {"name": name, **{key: k[key] for key in keys}}
+        {"name": name, **{key: k[key] for key in keys},
+         **({"host_ms": k["host_ms"]} if "host_ms" in k else {})}
         for name, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -90,12 +90,41 @@ def test_blake2s_words_kernel_matches_hashlib(cuda_device, nbytes):
         assert kh[:, i].astype("<u4").tobytes() == ref.digest()
 
 
-@pytest.mark.parametrize("bits", [0, 1, 12, 17])
+@pytest.mark.parametrize("bits", [0, 1, 8, 12, 16, 17, 20])
 def test_grind_kernel_returns_the_minimal_nonce(cuda_device, bits):
     seed = hashlib.blake2s(b"card-%d" % bits).digest()
     want = TK.grind_pow_plain(seed, bits, "cpu", batch=1 << 16)
     assert TK.grind_pow(seed, bits, cuda_device) == want
-    assert TK.grind_pow(seed, bits, cuda_device, batch=1000) == want
+    # batches of 1024 nonces: the hit falls in a later batch
+
+    def run_batch(base, count):
+        return TK.grind_batch(seed, bits, cuda_device, base, count)
+
+    assert TK.grind_search(TK.grind_batches(0, wave=1024), run_batch) == want
+
+
+def test_grind_kernel_reports_a_batch_without_a_hit(cuda_device):
+    seed = hashlib.blake2s(b"card-none").digest()
+    want = TK.grind_pow_plain(seed, 12, "cpu", batch=1 << 16)
+    assert want > 0
+    assert TK.grind_batch(seed, 12, cuda_device, 0, want) == TK.NOT_FOUND
+    assert TK.grind_batch(seed, 12, cuda_device, 0, want + 1) == want
+
+
+def test_grind_searches_from_threads_on_their_own_streams(cuda_device):
+    """Searches of one process share the kernel's state words; each still
+    gets its own minimal nonce."""
+    from concurrent.futures import ThreadPoolExecutor
+    seeds = [hashlib.blake2s(b"thread-%d" % i).digest() for i in range(8)]
+    want = [TK.grind_pow_plain(s, 12, "cpu", batch=1 << 16) for s in seeds]
+
+    def search(seed):
+        with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+            return [TK.grind_pow(seed, 12, cuda_device) for _ in range(50)]
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        got = list(pool.map(search, seeds))
+    assert got == [[w] * 50 for w in want]
 
 
 def test_fib_proof_on_card_equals_cpu(cuda_device):
@@ -123,3 +152,41 @@ def test_sdk_prove_defaults_to_the_card(cuda_device):
     cpu = sdk.prove(program, inputs, fast, device="cpu")
     assert card.native_proof.to_bytes() == cpu.native_proof.to_bytes()
     assert card.proof.SerializeToString() == cpu.proof.SerializeToString()
+
+
+@pytest.mark.parametrize("world,exchange", [(1, "device"), (2, "host"),
+                                            (4, "host")])
+def test_dryrun_on_the_card_equals_the_golden_roots(cuda_device, world,
+                                                    exchange):
+    """World 1 on nccl; worlds 2 and 4 as processes sharing the card with
+    the exchanges staged through pinned host memory and gloo."""
+    import json
+    from aero_tpu_torch.parallel import dryrun as DR
+    with open(DR.GOLDEN_PATH) as f:
+        want = json.load(f)["roots"]
+    out = DR.dryrun_prove_core(world, 64, exchange=exchange, timeout_s=300)
+    assert out.matches_single_device
+    assert [list(r) for r in out[:4]] == want
+    for r in out.ranks:
+        assert r["launches"]["gl_colntt"] > 0
+        assert r["launches"]["blake2s_hash_columns"] > 0
+        assert r["launches"]["blake2s_merge_level"] > 0
+
+
+def test_dryrun_never_shares_a_card_unasked(cuda_device):
+    from aero_tpu_torch.parallel import dryrun as DR
+    more = torch.cuda.device_count() + 1
+    with pytest.raises(RuntimeError, match="never chosen"):
+        DR.rank_devices(more, None, "device")
+    assert DR.rank_devices(more, None, "host") == ["cuda:0"] * more
+
+
+def test_single_device_dryrun_on_the_card_equals_the_golden_roots(
+        cuda_device):
+    import json
+    from aero_tpu_torch.parallel import dryrun as DR
+    with open(DR.GOLDEN_PATH) as f:
+        want = json.load(f)["roots"]
+    got = DR.single_device_dryrun(64)
+    assert got["roots"] == want
+    assert got["launches"]["gl_colntt"] > 0

@@ -114,6 +114,62 @@ def test_grind_matches_aero_tpu(tag):
     assert 128 - int.from_bytes(d[:16], "big").bit_length() >= 8
 
 
+def _host_batch(seed, bits):
+    """A batch of the search rendered with hashlib: the smallest qualifying
+    nonce of base .. base + count - 1, or NOT_FOUND."""
+    def run(base, count):
+        for nonce in range(base, base + count):
+            d = merge_with_int(seed, nonce)
+            if 128 - int.from_bytes(d[:16], "big").bit_length() >= bits:
+                return nonce
+        return TK.NOT_FOUND
+    return run
+
+
+def test_grind_batches_are_sized_from_the_bits():
+    for bits, want in ((0, TK.WAVE), (8, TK.WAVE), (16, TK.WAVE),
+                       (17, 4 << 17), (20, 4 << 20), (40, TK.MAX_BATCH)):
+        gen = TK.grind_batches(bits)
+        got = [next(gen) for _ in range(3)]
+        assert got == [(i * want, want) for i in range(3)], bits
+        assert want % 256 == 0
+    gen = TK.grind_batches(2, wave=100)        # whole blocks of 256
+    assert [next(gen) for _ in range(2)] == [(0, 256), (256, 256)]
+
+
+@pytest.mark.parametrize("tag", [b"sched-a", b"sched-b", b"sched-c",
+                                 b"sched-d"])
+def test_grind_schedule_returns_the_minimal_nonce_from_a_later_batch(tag):
+    """The kernel wrapper's batch walk, with the batch rendered on the host:
+    batches of 256 nonces at 10 bits put the hit in a later batch for these
+    seeds, and the walk still returns the plain version's minimal nonce."""
+    seed = hashlib.blake2s(tag).digest()
+    want = TB.grind_pow(seed, 10, "cpu", batch=1024)
+    seen = []
+
+    def run(base, count):
+        seen.append((base, count))
+        return _host_batch(seed, 10)(base, count)
+
+    got = TK.grind_search(TK.grind_batches(0, wave=256), run)
+    assert got == want
+    assert seen == [(256 * i, 256) for i in range(want // 256 + 1)]
+    assert len(seen) >= 2          # nonces 772, 797, 1891 and 1842
+
+
+def test_grind_search_stops_at_the_first_batch_with_a_hit():
+    calls = []
+
+    def run(base, count):
+        calls.append(base)
+        return TK.NOT_FOUND if base < 512 else base + 7
+
+    assert TK.grind_search(TK.grind_batches(0, wave=256), run) == 519
+    assert calls == [0, 256, 512]
+    with pytest.raises(RuntimeError):
+        TK.grind_search([(0, 4)], lambda b, c: TK.NOT_FOUND)
+
+
 def _coin_with_seed(seed: bytes) -> RandomCoin:
     coin = RandomCoin(b"")
     coin.seed = seed

@@ -39,7 +39,9 @@ def test_package_has_the_slice_modules():
               "spec.cairo_sim", "utils.tracing", "vm", "vm.mast",
               "vm.stdlib", "vm.rescue", "sdk.pb.aero_pb2", "sdk.server",
               "io.cairo_memory", "tools.generate_proof",
-              "tools.stark_parser", "tools.demo"):
+              "tools.stark_parser", "tools.demo", "tools.check_constraints",
+              "tools.regen_dryrun_golden", "parallel.mesh",
+              "parallel.dist_ntt", "parallel.sharded", "parallel.dryrun"):
         assert "aero_tpu_torch." + m in mods, m
 
 
@@ -87,6 +89,30 @@ def test_port_runs_with_aero_tpu_absent(tmp_path):
     res = run("-m", "aero_tpu_torch.tools.stark_parser", "p.bin", "proof")
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith('["0x48"')
+
+
+def test_parallel_exports_the_names_of_aero_tpu_parallel():
+    """Every name `aero_tpu.parallel` exports but `gf_scalar` (a scalar is a
+    Python int in the port); read from the source, not by importing it."""
+    import aero_tpu_torch.parallel as TP
+    with open(os.path.join(ROOT, "aero_tpu", "parallel", "__init__.py")) as f:
+        names = re.findall(r"[a-z_]+", f.read().split("import", 1)[1])
+    assert "stage_commit" in names and "gf_scalar" in names
+    for name in names:
+        assert hasattr(TP, name) == (name != "gf_scalar"), name
+
+
+def test_dryrun_runs_with_aero_tpu_absent(tmp_path):
+    """The multi-device entry point from a directory that holds the port
+    alone: two CPU ranks, roots equal to the port's own golden file."""
+    os.symlink(PKG, tmp_path / "aero_tpu_torch")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run(
+        [sys.executable, "-m", "aero_tpu_torch.parallel.dryrun", "--world",
+         "2", "--cpu"], cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "roots match the single-device pipeline: True" in res.stdout
 
 
 def test_scale_program_is_bench_long_fib_source():
