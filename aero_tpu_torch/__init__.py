@@ -9,6 +9,8 @@ options this package emits the same proof bytes.
 - `field`   — Goldilocks arithmetic on int64 tensors (u64 bit patterns,
               canonical in [0, p)).
 - `ntt`     — NTT / iNTT / coset LDE; CUDA tensors go through kernel 1.
+              `ntt.ntt_mxu` is the int8 tensor-core 4-step, public and
+              bit-exact, not on the main path (it loses to kernel 1).
 - `hash`    — blake2s-256 leaf hashing, Merkle merges and PoW; CUDA
               tensors go through kernel 2.
 - `merkle`  — commitments whose node levels stay on the device.
@@ -25,7 +27,7 @@ options this package emits the same proof bytes.
               submission server (`python -m aero_tpu_torch.sdk.server`).
 - `io`      — a proof re-encoded as Cairo-readable memory.
 - `tools`   — `python -m aero_tpu_torch.tools.{generate_proof,stark_parser,demo,
-              check_constraints,regen_dryrun_golden}`.
+              check_constraints,regen_dryrun_golden,card_check}`.
 - `parallel` — the multi-device path: a mesh of `torch.distributed` ranks,
               the distributed NTT, the prover's stages on local blocks and
               the dry-run pipeline (`python -m aero_tpu_torch.parallel.dryrun`).

@@ -85,6 +85,15 @@ def gf_take(x: torch.Tensor, idx, axis: int = 0) -> torch.Tensor:
     return torch.index_select(x, axis, idx)
 
 
+def gf_where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+    return torch.where(mask, a, b)
+
+
+def gf_reshape(x: torch.Tensor, shape) -> torch.Tensor:
+    return x.reshape(tuple(shape))
+
+
 # ------------------------------------------------------------------ field ops
 
 def _ult(x: torch.Tensor, y) -> torch.Tensor:
@@ -141,6 +150,38 @@ def square(a: torch.Tensor) -> torch.Tensor:
 
 def mul_scalar(a: torch.Tensor, c: int) -> torch.Tensor:
     return mul(a, scalar(c, a.device))
+
+
+def mul_pow2_const(a: torch.Tensor, k: int) -> torch.Tensor:
+    """a * 2^k mod p for a host integer k, by shifts and folds, no multiply
+    (`jax_gl.mul_pow2_const`). 2 has order 192 in Goldilocks (2^96 = -1), so
+    k is taken mod 192 and k >= 96 negates. With k = 32q + r the product
+    a * 2^r is a 96-bit value whose 32-bit limbs land at limb offset q of a
+    160-bit one; the limbs past the second fold with 2^64 = 2^32 - 1,
+    2^96 = -1 and 2^128 = -2^32. `a` may be any u64 bit pattern."""
+    k %= 192
+    negate = k >= 96
+    q, r = divmod(k % 96, 32)
+    s = a << r                                    # low 64 bits of a * 2^r
+    zero = torch.zeros_like(a)
+    top = (a >> (64 - r)) & ((1 << r) - 1) if r else zero    # bits 64..95
+    l0, l1 = s & _M32, (s >> 32) & _M32
+    if q == 0:
+        out = _reduce(s, top, zero)
+    elif q == 1:
+        out = _reduce(l0 << 32, l1, top)
+    else:
+        out = _reduce(zero, l0, l1)
+        if r:
+            out = sub(out, top << 32)             # top < 2^31: canonical
+    return neg(out) if negate else out
+
+
+def pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a host exponent; a^0 is 1. The JAX package kept an unrolled
+    and a loop form apart for the sake of compile times; here both are
+    `pow_loop`."""
+    return pow_loop(a, e)
 
 
 def pow_loop(a: torch.Tensor, e: int) -> torch.Tensor:
@@ -231,6 +272,13 @@ def power_series_rows(bases: torch.Tensor, n: int) -> torch.Tensor:
         out = torch.cat([out, mul(out, b)], dim=1)
         b = square(b)
     return out
+
+
+def eval_polys_at(polys: torch.Tensor, z: int) -> np.ndarray:
+    """Evaluate coefficient rows (..., n) at the scalar z: returns uint64 of
+    shape polys.shape[:-1] (`jax_gl.eval_polys_at`)."""
+    rows = polys.reshape(-1, polys.shape[-1])
+    return eval_polys_multi(rows, [z])[0].reshape(polys.shape[:-1])
 
 
 def eval_polys_multi(polys: torch.Tensor, zs) -> np.ndarray:

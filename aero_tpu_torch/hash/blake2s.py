@@ -10,6 +10,11 @@ digests (8, B), so column-major trace data hashes without a transpose.
 These functions run on any device. The kernel wrappers in
 `blake2s_cuda.py` take them for CPU tensors; `chip_smoke.py` runs them on
 the card as the comparison for the kernels.
+
+The row-major front ends at the end (`hash_elements_rows`, `merge_pairs`:
+rows (n, w), digests (n, 8), the layouts of `blake2s_jax.py`) are the one
+exception: they hand a transposed copy to the word-major wrappers, so a CUDA
+tensor goes through the kernel and a CPU tensor through the functions above.
 """
 
 from __future__ import annotations
@@ -116,6 +121,42 @@ def merge_level_t(d: torch.Tensor) -> torch.Tensor:
     parent = blake2s(left digest || right digest)."""
     words = [d[j, 0::2] for j in range(8)] + [d[j, 1::2] for j in range(8)]
     return _hash_blocks([words], 64, d.shape[1] // 2, d.device)
+
+
+def felt_rows_to_words(rows: torch.Tensor) -> torch.Tensor:
+    """Felts (batch, cols) -> (batch, cols * 8) u32 words: each felt as
+    [lo, hi, 0, 0, 0, 0, 0, 0], the protocol's 32-byte little-endian
+    encoding."""
+    rows = canonicalize(rows)
+    batch, cols = rows.shape
+    words = torch.zeros((batch, cols, 8), dtype=torch.int64,
+                        device=rows.device)
+    words[..., 0] = rows & M32
+    words[..., 1] = (rows >> 32) & M32
+    return words.reshape(batch, cols * 8)
+
+
+def hash_elements_rows(rows: torch.Tensor) -> torch.Tensor:
+    """Protocol hash_elements of each row: felts (batch, cols) ->
+    (batch, 8) digest words."""
+    # the wrappers import this module: the import waits for the call
+    from .blake2s_cuda import hash_columns
+    return hash_columns(rows.t().contiguous()).t().contiguous()
+
+
+def merge_pairs(digests: torch.Tensor) -> torch.Tensor:
+    """One Merkle level row-major: (2n, 8) -> (n, 8),
+    parent = blake2s(left digest || right digest)."""
+    from .blake2s_cuda import merge_level
+    return merge_level(digests.t().contiguous()).t().contiguous()
+
+
+def digests_to_bytes(digests) -> list:
+    """(n, 8) digest words, tensor or array -> list of 32-byte digests."""
+    if isinstance(digests, torch.Tensor):
+        digests = digests.detach().cpu().numpy()
+    arr = np.ascontiguousarray(np.asarray(digests).astype("<u4"))
+    return [arr[i].tobytes() for i in range(arr.shape[0])]
 
 
 def _clz32(x: torch.Tensor) -> torch.Tensor:

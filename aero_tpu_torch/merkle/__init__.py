@@ -1,1 +1,2 @@
-from .tree import ResidentMerkleTree, commit_columns
+from .tree import (ResidentMerkleTree, commit_columns, commit_digests,
+                   commit_rows)

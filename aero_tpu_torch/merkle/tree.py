@@ -1,10 +1,14 @@
 """Merkle commitments whose node levels stay on the device.
 
 The counterpart of `aero_tpu/merkle/tree.py` (`commit_columns`,
-`ResidentMerkleTree`). Leaves are the hash_elements digests of the rows of
-column-major felts (w, m); every level is an (8, size) int64 tensor of u32
-digest words. A batch opening gathers only the digests the proof ships
-(`spec.merkle.batch_proof_coords`), one device gather per level.
+`commit_rows`, `commit_digests`, `ResidentMerkleTree`). One tree class:
+`aero_tpu` keeps a `DeviceMerkleTree` beside it because its TPU path
+downloaded the levels to the host; here `ResidentMerkleTree` serves every
+commit, with `prove` and `prove_batch` both. Leaves are the hash_elements
+digests of the rows of column-major felts (w, m); every level is an
+(8, size) int64 tensor of u32 digest words. A batch opening gathers only the
+digests the proof ships (`spec.merkle.batch_proof_coords`), one device gather
+per level.
 
 The TPU package chunked the leaf axis to bound an 8x word message in HBM
 and finished the levels below 2^15 on the host to dodge relay module
@@ -60,6 +64,17 @@ class ResidentMerkleTree:
                 out[c] = _digest_bytes(got[:, j])
         return out
 
+    def prove(self, index: int) -> List[bytes]:
+        """The opening of one leaf: its digest, then the sibling at each
+        level up to the root (`spec.merkle.MerkleTree.prove`)."""
+        coords = [self.n + index]
+        i = self.n + index
+        while i > 1:
+            coords.append(i ^ 1)
+            i >>= 1
+        got = self._fetch(coords)
+        return [got[c] for c in coords]
+
     def prove_batch(self, indexes) -> BatchMerkleProof:
         leaf_coords, node_coords = batch_proof_coords(self.n, self.depth,
                                                       indexes)
@@ -76,11 +91,26 @@ class ResidentMerkleTree:
         return self
 
 
-def commit_columns(cols: torch.Tensor) -> ResidentMerkleTree:
-    """Commit to the rows of column-major felts (w, n_leaves)."""
-    cur = hash_columns(cols.contiguous())
+def _tree_over(leaves_t: torch.Tensor) -> ResidentMerkleTree:
+    """The tree over word-major leaf digests (8, n)."""
+    cur = leaves_t
     levels = [cur]
     while cur.shape[1] > 1:
         cur = merge_level(cur)
         levels.append(cur)
     return ResidentMerkleTree(levels)
+
+
+def commit_columns(cols: torch.Tensor) -> ResidentMerkleTree:
+    """Commit to the rows of column-major felts (w, n_leaves)."""
+    return _tree_over(hash_columns(cols.contiguous()))
+
+
+def commit_digests(leaf_digests: torch.Tensor) -> ResidentMerkleTree:
+    """The tree over row-major leaf digests (n_leaves, 8)."""
+    return _tree_over(leaf_digests.t().contiguous())
+
+
+def commit_rows(rows: torch.Tensor) -> ResidentMerkleTree:
+    """Commit to row-major felts (n_leaves, row_width)."""
+    return commit_columns(rows.t())

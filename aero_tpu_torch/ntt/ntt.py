@@ -10,6 +10,17 @@ The coset LDE folds the offset into the coefficients (c_i * offset^i) and
 runs one zero-padded size-n*blowup transform, the single-NTT formulation
 of `aero_tpu.ntt.lde` (its coset-by-coset TPU formulation gives the same
 values).
+
+No size goes to the int8 tensor-core 4-step (`ntt_mxu.py`), which
+`aero_tpu.ntt` dispatches 2^16..2^20 to on the TPU. On an NVIDIA H100 80GB
+HBM3 at 700 W (`chip_smoke.py` phase 8) its int8 products alone take
+58.0 ms at 72 x 2^20, 29 % of the 16.9 ms that the card's dense int8 rate
+allows, and 6.7-12.1 ms at 8 x 2^18 (launch-bound); the whole transform
+takes 1417-1432 ms and 23-44 ms; kernel 1 takes 3.30 ms and 0.124 ms at the
+same shapes. The TPU's reason for the matmul route, a vector unit with a
+weak 32-bit multiplier, does not hold on a card with a full-rate integer
+multiply-add. `ntt_mxu` and `intt_mxu` are public, bit-exact and checked on
+the card; there is no switch that routes `ntt` / `intt` through them.
 """
 
 from __future__ import annotations

@@ -6,7 +6,8 @@ arrays) and the table builders of `aero_tpu/ntt/ntt_pallas.py:64-119`
 cannot lend without importing jax. Two changes: a pass may be 4096 long
 (the TPU kernel stopped at 2048), so two passes cover n up to 2^24; and
 `pack_stage_tw` packs the per-stage twiddles the way the CUDA kernel
-reads them.
+reads them. The last section holds the tables of the int8-limb 4-step
+transform (`ntt_mxu.py`; `aero_tpu/ntt/ntt_mxu.py:46-79`).
 """
 
 from __future__ import annotations
@@ -145,3 +146,43 @@ def radix2_twiddles(n: int, invert: bool) -> np.ndarray:
     if invert:
         w = F.inv(w)
     return pack_stage_tw(expanded_stage_tw(n, w), n)
+
+
+# ----------------------------------- tables of the int8-limb 4-step (ntt_mxu)
+
+NLIMB = 16              # 4-bit limbs per 64-bit element
+
+
+@functools.lru_cache(maxsize=32)
+def dft_matrix(k: int, invert: bool, scale: int = 1) -> np.ndarray:
+    """uint64 (k, k): scale * W[o, i], W = w_k^(o*i) (w_k^-1 for invert)."""
+    w = F.get_root_of_unity(k.bit_length() - 1)
+    if invert:
+        w = F.inv(w)
+    pw = np_power_series(w, k, scale)
+    oi = np.outer(np.arange(k, dtype=np.int64), np.arange(k, dtype=np.int64))
+    return pw[oi % k]
+
+
+@functools.lru_cache(maxsize=32)
+def dft_matrix_limbs(k: int, invert: bool, scale: int = 1) -> np.ndarray:
+    """int8 (NLIMB, k, k): limb a of `dft_matrix(k, invert, scale)`. The
+    inverse transform folds its 1/n into the second matrix via `scale`."""
+    W = dft_matrix(k, invert, scale)
+    out = np.empty((NLIMB, k, k), dtype=np.int8)
+    for a in range(NLIMB):
+        out[a] = ((W >> np.uint64(4 * a)) & np.uint64(0xF)).astype(np.int8)
+    return out
+
+
+@functools.lru_cache(maxsize=32)
+def cross_twiddles(k1: int, k2: int, invert: bool) -> np.ndarray:
+    """uint64 (k1, k2): T[o1, i2] = w_n^(i2*o1), n = k1*k2, the twiddles
+    between the two DFT passes."""
+    n = k1 * k2
+    w = F.get_root_of_unity(n.bit_length() - 1)
+    if invert:
+        w = F.inv(w)
+    pw = np_power_series(w, n)
+    return pw[np.outer(np.arange(k1, dtype=np.int64),
+                       np.arange(k2, dtype=np.int64)) % n]

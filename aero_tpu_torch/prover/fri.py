@@ -19,20 +19,44 @@ import torch
 
 from ..spec import field as F
 
-from ..field import from_u64, gf_sum, mul, to_u64
+from ..field import from_u64, gf_sum, mul, scalar, to_u64
 from ..merkle import ResidentMerkleTree, commit_columns
 from ..ntt import intt, ntt
 from ..ntt.tables import np_power_series
 
 
+def transposed_rows(evals: torch.Tensor, ff: int) -> torch.Tensor:
+    """(m,) evaluations -> (m/ff, ff) leaf rows: leaf fp is the strided
+    fiber {fp + t*(m/ff)}."""
+    m = evals.shape[-1]
+    return evals.reshape(ff, m // ff).T
+
+
+def _fold_with(evals: torch.Tensor, weights: torch.Tensor, ff: int
+               ) -> torch.Tensor:
+    m = evals.shape[-1]
+    groups = intt(evals).reshape(m // ff, ff)
+    return ntt(gf_sum(mul(groups, weights), axis=-1).contiguous())
+
+
 def fold_evals(evals: torch.Tensor, alpha: int, ff: int,
                offset: int = F.DOMAIN_OFFSET) -> torch.Tensor:
     """One FRI fold: (m,) -> (m/ff,)."""
-    m = evals.shape[-1]
-    groups = intt(evals).reshape(m // ff, ff)
     w = F.mul(alpha, F.inv(offset))
-    weights = from_u64(np_power_series(w, ff), evals.device)
-    return ntt(gf_sum(mul(groups, weights), axis=-1).contiguous())
+    return _fold_with(evals, from_u64(np_power_series(w, ff), evals.device),
+                      ff)
+
+
+def fold_evals_gf(evals: torch.Tensor, alpha: torch.Tensor, ff: int,
+                  offset: int = F.DOMAIN_OFFSET) -> torch.Tensor:
+    """`fold_evals` with the challenge as a 0-d field tensor on the device:
+    the weights (alpha/offset)^j come from device multiplies and nothing is
+    read back to the host."""
+    w = mul(alpha, scalar(F.inv(offset), evals.device))
+    weights = [scalar(1, evals.device)]
+    for _ in range(ff - 1):
+        weights.append(mul(weights[-1], w))
+    return _fold_with(evals, torch.stack(weights), ff)
 
 
 @dataclass

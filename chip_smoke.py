@@ -5,7 +5,7 @@
 
 Needs one CUDA card, `nvcc` and `cuobjdump`; builds the kernels from
 `aero_tpu_torch/csrc` and the C++ VM from `aero_tpu_torch/vm/core` at first
-use. It imports the port only. Set-up, then seven phases, each of which raises
+use. It imports the port only. Set-up, then eight phases, each of which raises
 on a failed check (so the script exits non-zero):
 
   0. card name, power limit and clocks, torch/CUDA versions, kernel and VM
@@ -37,6 +37,19 @@ on a failed check (so the script exits non-zero):
      version at every shape the 2^18-row runs hand it. Prints the roots,
      each rank's seconds per stage, the bytes each kind of exchange moved
      and the launches per kernel; a mismatch or a dead rank raises.
+  8. the int8 tensor-core 4-step NTT (`ntt/ntt_mxu.py`; `torch._int_mm`, no
+     hand-written kernel, so it has no row in the `kernels` line): `ntt_mxu`
+     and `intt_mxu` equal to the NTT kernel at 2^6 x 3, 2^8 x 2, 2^10 x 2 x 4,
+     2^13 x 8, 2^18 x 8 (tiles of 512, the schoolbook route) and 2^20 x 72
+     (tiles of 1024, the Karatsuba route), and to `ntt_plain` up to 2^18; at
+     the last two shapes the CUDA-event times of the int8 products alone,
+     of the whole transform and of the NTT kernel, beside the products'
+     bound (their multiply-adds over the card's dense int8 rate) and the
+     peak device memory, and one product in both layouts of its second
+     operand; the golden proof and the 2^18-row single-device dry
+     run once more with every transform of 2^10..2^20 points patched
+     through `ntt_mxu` here in the script, sha256 and roots unchanged; and
+     `tools.card_check` in-process.
 
 Kernel comparisons are exact (tolerance 0): finite-field and hash
 arithmetic. Launch counters are reset right before each proof and read
@@ -77,6 +90,10 @@ B2S_TPU = "aero_tpu/hash/blake2s_pallas.py:36"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SMS = 132                      # streaming multiprocessors of an H100 SXM
 LOG_LDE = 23                   # LDE domain of the 2^20-row proof
+INT8_OPS_PER_S = 1979e12       # H100 SXM data sheet: dense int8 rate
+MXU_LOGS = (10, 20)            # sizes phase 8 patches through ntt_mxu: both
+                               # tiles at least 32 (no padding), up to the
+                               # largest size the JAX package sends that way
 
 
 def long_fib_source(n_iters: int) -> str:
@@ -518,7 +535,7 @@ def phase_golden(dev):
     log("[phase 3] golden proof verifies under spec.verifier (air=port air)")
     for name in PATH_KERNELS:
         check(counts[name] > 0, f"{name} launched in the golden proof")
-    return res
+    return res, digest
 
 
 def phase_scale(dev, kernels):
@@ -776,10 +793,11 @@ def phase_dryrun_shapes(dev, gen) -> None:
         f"root: kernel == plain, max_abs_err {worst}")
 
 
-def phase_dryrun(dev, gen, kernels) -> None:
+def phase_dryrun(dev, gen, kernels):
     """The sharded stages end to end, world 1 on nccl and world 4 sharing
     the card, at 64 rows and at 2^18 rows; first the kernels against their
-    plain versions at the shapes of the 2^18-row runs."""
+    plain versions at the shapes of the 2^18-row runs. Returns the
+    single-device roots at 2^18 rows."""
     from aero_tpu_torch.parallel import dryrun as dr
 
     phase_dryrun_shapes(dev, gen)
@@ -853,6 +871,173 @@ def phase_dryrun(dev, gen, kernels) -> None:
               "the dry run has no proof of work and launches no grind")
         for name in PATH_KERNELS:
             kernels[name][f"launches_dryrun_world{world}"] = total[name]
+    return single["roots"]
+
+
+def mxu_products_ms(k: int, m: int, dev) -> tuple:
+    """(milliseconds, products, multiply-adds) of the int8 products one DFT
+    pass of `ntt_mxu` makes for a (k, m) operand, and nothing else: the same
+    `_int8_matmul` on the same column chunks, 108 products a chunk on the
+    Karatsuba route (k >= 1024) and 256 on the schoolbook route."""
+    from aero_tpu_torch.ntt import ntt_mxu as mx
+    count = 108 if k >= 1024 else 256
+    step = max(8, mx.CHUNK_POINTS // k)
+    widths = [min(step, m - a) for a in range(0, m, step)]
+    f = torch.randint(0, 16, (k, k), dtype=torch.int8, device=dev)
+    xts = {w: torch.randint(0, 16, (w, k), dtype=torch.int8, device=dev)
+           for w in set(widths)}
+
+    def run():
+        for w in widths:
+            for _ in range(count):
+                mx._int8_matmul(f, xts[w])
+    return cuda_ms(run, iters=3), count * len(widths), count * k * k * m
+
+
+@contextlib.contextmanager
+def transforms_through_mxu(routed: list):
+    """Inside the block, every transform of the port on a CUDA tensor whose
+    size lies in MXU_LOGS goes through `ntt_mxu` / `intt_mxu`; the others
+    take the NTT kernel as always. The package has no such switch: this
+    replaces its dispatch function here, for the block."""
+    import importlib
+    from aero_tpu_torch.ntt.ntt_mxu import intt_mxu, ntt_mxu
+    # the package's attribute `ntt.ntt` is the function; this is the module
+    nn = importlib.import_module("aero_tpu_torch.ntt.ntt")
+    kernel_path = nn._transform
+
+    def dispatch(x, invert):
+        log_n = x.shape[-1].bit_length() - 1
+        if x.is_cuda and MXU_LOGS[0] <= log_n <= MXU_LOGS[1]:
+            routed.append((x.numel() >> log_n, log_n, invert))
+            return intt_mxu(x) if invert else ntt_mxu(x)
+        return kernel_path(x, invert)
+
+    nn._transform = dispatch
+    try:
+        yield
+    finally:
+        nn._transform = kernel_path
+
+
+def phase_mxu(dev, rng, gen, golden_digest, dryrun_roots) -> None:
+    from aero_tpu_torch.field import P, from_u64
+    from aero_tpu_torch.ntt import ntt_plain
+    from aero_tpu_torch.ntt import ntt_mxu as mx
+    from aero_tpu_torch.ntt.ntt_cuda import ntt_cuda
+    from aero_tpu_torch.parallel import dryrun as dr
+    from aero_tpu_torch.tools import card_check
+    from aero_tpu_torch.vm import fibonacci_source
+
+    log(f"[phase 8] int8 bound: multiply-adds x 2 operations over "
+        f"{INT8_OPS_PER_S / 1e12:.0f} TOPS, the H100 SXM data sheet's dense "
+        "int8 tensor-core rate")
+    # why `_int8_matmul` hands `_int_mm` its second operand column-major:
+    # one product of the Karatsuba route's chunk shape in both layouts
+    k, m = 1024, mx.CHUNK_POINTS // 1024
+    a = torch.randint(0, 16, (k, k), dtype=torch.int8, device=dev)
+    bt = torch.randint(0, 16, (m, k), dtype=torch.int8, device=dev)
+    b_row = bt.t().contiguous()
+    check(torch.equal(torch._int_mm(a, bt.t()), torch._int_mm(a, b_row)),
+          "_int_mm gives the same product in both layouts")
+    col_ms = cuda_ms(lambda: torch._int_mm(a, bt.t()), iters=20)
+    row_ms = cuda_ms(lambda: torch._int_mm(a, b_row), iters=20)
+    log(f"[phase 8] torch._int_mm ({k} x {k}) @ ({k} x {m}): second operand "
+        f"column-major {col_ms:.4f} ms ({2 * k * k * m / col_ms / 1e9:.1f} "
+        f"TOPS), row-major {row_ms:.4f} ms "
+        f"({2 * k * k * m / row_ms / 1e9:.1f} TOPS)")
+    del a, bt, b_row
+    shapes = (((3,), 6), ((2,), 8), ((2, 4), 10), ((8,), 13), ((8,), 18),
+              ((72,), 20))
+    for batch, log_n in shapes:
+        n = 1 << log_n
+        shape = batch + (n,)
+        what = " x ".join(map(str, batch)) + f" x 2^{log_n}"
+        k1, k2 = mx._factor(n)
+        x = (device_felts(shape, gen, dev) if log_n >= 18 else
+             from_u64(rng.integers(0, P, size=shape, dtype=np.uint64), dev))
+        for inv, fn in ((False, mx.ntt_mxu), (True, mx.intt_mxu)):
+            name = "intt_mxu" if inv else "ntt_mxu"
+            mx.reset_products()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            got = fn(x)
+            peak = torch.cuda.max_memory_allocated() - held
+            launched = mx.PRODUCTS["int8_matmul"]
+            want = ntt_cuda(x, inv)
+            err = max_abs_err(got, want)
+            check(err == 0, f"{name} {what} == the NTT kernel")
+            check(launched > 0, f"{name} {what} launched its int8 products")
+            plain = ""
+            if log_n <= 18:
+                check(torch.equal(got, ntt_plain(x, inv)),
+                      f"{name} {what} == ntt_plain")
+                plain = " == ntt_plain"
+            del got, want
+            log(f"[phase 8] {name} {what} (tiles {k1} x {k2}): == the NTT "
+                f"kernel{plain}, max_abs_err {err}; {launched} int8 products"
+                f"; peak device memory above the input {peak} B")
+            if log_n < 18:
+                continue
+            ms = cuda_ms(lambda: fn(x), iters=2)
+            kms = cuda_ms(lambda: ntt_cuda(x, inv))
+            log(f"[phase 8] {name} {what}: whole transform {ms:.3f} ms, the "
+                f"NTT kernel (gl_colntt, 2 launches) {kms:.3f} ms: "
+                f"{ms / kms:.1f} x")
+        if log_n < 18:
+            continue
+        B = x.numel() // n
+        del x
+        p_ms, products, macs = 0.0, 0, 0
+        for k, m in ((k1, B * k2), (k2, B * k1)):
+            t, c, w = mxu_products_ms(k, m, dev)
+            p_ms, products, macs = p_ms + t, products + c, macs + w
+        b_ms = 2 * macs / INT8_OPS_PER_S * 1e3
+        log(f"[phase 8] {what}: the int8 products alone ({products} calls of "
+            f"torch._int_mm, {macs} multiply-adds, "
+            f"{macs // (B * n)} a point): {p_ms:.3f} ms; bound {b_ms:.3f} ms "
+            f"by operations: {100 * b_ms / p_ms:.1f} % of the bound reached, "
+            f"{2 * macs / p_ms / 1e9:.1f} TOPS")
+    torch.cuda.empty_cache()
+
+    routed = []
+    with transforms_through_mxu(routed):
+        mx.reset_products()
+        res = _prove(fibonacci_source(10), 1024, dev)
+    digest = hashlib.sha256(res.native_proof.to_bytes()).hexdigest()
+    log(f"[phase 8] golden proof with {len(routed)} transforms through "
+        f"ntt_mxu (rows, log size, inverse) {sorted(set(routed))}, "
+        f"{mx.PRODUCTS['int8_matmul']} int8 products: sha256 {digest}")
+    check(len(routed) > 0 and digest == golden_digest,
+          "golden proof through ntt_mxu == phase 3's sha256")
+
+    rows = 1 << LOG_DRYRUN_ROWS
+    routed = []
+    with transforms_through_mxu(routed):
+        mx.reset_products()
+        single = dr.single_device_dryrun(rows, dev,
+                                         long_fib_source((rows - 64) // 12),
+                                         [0, 1])
+    log(f"[phase 8] 2^{LOG_DRYRUN_ROWS}-row single-device dry run with "
+        f"{len(routed)} transforms through ntt_mxu {sorted(set(routed))}, "
+        f"{mx.PRODUCTS['int8_matmul']} int8 products: stage seconds "
+        + json.dumps(single["seconds"]) + "; launches "
+        + json.dumps(single["launches"]))
+    for name, root in zip(dr.ROOT_NAMES, single["roots"]):
+        log(f"[phase 8] 2^{LOG_DRYRUN_ROWS} rows through ntt_mxu: "
+            f"{name}_root {dr.root_hex(root)}")
+    check((72, LOG_DRYRUN_ROWS, True) in routed
+          and single["roots"] == dryrun_roots,
+          "dry-run roots through ntt_mxu == phase 7's single-device roots")
+    torch.cuda.empty_cache()
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = card_check.main()
+    for line in buf.getvalue().splitlines():
+        log(f"[phase 8] card_check: {line}")
+    check(rc == 0, "card_check passes")
 
 
 def main() -> int:
@@ -903,11 +1088,14 @@ def main() -> int:
     phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz)
     phase_ntt(dev, rng, gen, kernels, sass, clock_hz)
     torch.cuda.empty_cache()
-    golden_res = phase_golden(dev)
+    golden_res, golden_digest = phase_golden(dev)
     scale_res = phase_scale(dev, kernels)
     phase_served(scale_res, golden_res)
     phase_parser(dev)
-    phase_dryrun(dev, gen, kernels)
+    dryrun_roots = phase_dryrun(dev, gen, kernels)
+    del scale_res
+    torch.cuda.empty_cache()
+    phase_mxu(dev, rng, gen, golden_digest, dryrun_roots)
 
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

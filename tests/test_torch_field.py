@@ -146,3 +146,36 @@ def test_eval_polys_multi():
     want = J.eval_polys_multi(J.to_gf(polys), zs)
     assert got.shape == (3, 9)
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("e", [0, 1, 2, 7, 255, 1 << 33, P - 2])
+def test_pow_const(e):
+    a = _vals(n=40, seed=12)
+    got = _u(T.pow_const(_t(a), e))
+    assert np.array_equal(got, J.from_gf(J.pow_const(J.to_gf(a), e)))
+    assert [int(x) for x in got] == [F.exp(int(x), e) for x in a]
+
+
+def test_gf_where_and_gf_reshape():
+    a, b = _vals(n=60, seed=13), _vals(n=60, seed=14)
+    mask = np.random.default_rng(15).integers(0, 2, size=60).astype(bool)
+    got = _u(T.gf_where(torch.from_numpy(mask), _t(a), _t(b)))
+    want = J.from_gf(J.gf_where(mask, J.to_gf(a), J.to_gf(b)))
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, np.where(mask, a, b))
+    for shape in ((6, 10), (3, 4, 5), (60,)):
+        assert np.array_equal(_u(T.gf_reshape(_t(a), shape)),
+                              J.from_gf(J.gf_reshape(J.to_gf(a), shape)))
+
+
+@pytest.mark.parametrize("shape", [(64,), (9, 64), (2, 3, 32)])
+def test_eval_polys_at(shape):
+    polys = _vals(n=int(np.prod(shape)), seed=16).reshape(shape)
+    for z in (0, 1, 5, P - 3, F.get_root_of_unity(9)):
+        got = T.eval_polys_at(_t(polys), z)
+        want = J.eval_polys_at(J.to_gf(polys), z)
+        assert got.shape == shape[:-1]
+        assert np.array_equal(got, want), z
+    row = polys.reshape(-1, shape[-1])[0]
+    assert int(T.eval_polys_at(_t(polys), 5).reshape(-1)[0]) == \
+        sum(int(c) * pow(5, i, P) for i, c in enumerate(row)) % P

@@ -52,6 +52,61 @@ def test_ntt_kernel_matches_plain(cuda_device, logn):
     assert torch.equal(ntt_cuda.ntt_cuda(ntt_cuda.ntt_cuda(x), True), x)
 
 
+@pytest.mark.parametrize("shape", [(3, 64), (2, 256), (2, 4, 1 << 10),
+                                   (8, 1 << 13), (2, 1 << 18)])
+def test_ntt_mxu_on_the_card_equals_the_ntt_kernel(cuda_device, shape):
+    """The int8 tensor-core 4-step (`torch._int_mm`), tiles below 32 padded,
+    against kernel 1 and the plain radix-2 transform."""
+    from aero_tpu_torch.ntt import ntt_mxu as mx
+    rng = np.random.default_rng(shape[-1])
+    x = from_u64(rng.integers(0, P, size=shape, dtype=np.uint64), cuda_device)
+    mx.reset_products()
+    for invert, fn in ((False, mx.ntt_mxu), (True, mx.intt_mxu)):
+        got = fn(x)
+        assert torch.equal(got, ntt_cuda.ntt_cuda(x, invert))
+        assert torch.equal(got, ntt_plain(x, invert))
+    assert mx.PRODUCTS["int8_matmul"] == 2 * 2 * 256
+    assert torch.equal(mx.intt_mxu(mx.ntt_mxu(x)), x)
+
+
+def test_ntt_mxu_karatsuba_route_on_the_card(cuda_device):
+    from aero_tpu_torch.ntt import ntt_mxu as mx
+    rng = np.random.default_rng(20)
+    x = from_u64(rng.integers(0, P, size=(2, 1 << 20), dtype=np.uint64),
+                 cuda_device)
+    mx.reset_products()
+    assert torch.equal(mx.ntt_mxu(x), ntt_cuda.ntt_cuda(x))
+    assert mx.PRODUCTS["int8_matmul"] == 2 * 108
+
+
+def test_card_check_exits_zero(cuda_device, capsys):
+    from aero_tpu_torch.tools import card_check
+    assert card_check.main() == 0
+    out = capsys.readouterr().out
+    assert "failures: 0" in out and "FAIL " not in out
+    assert out.count("PASS") == 15
+
+
+def test_row_major_hashing_takes_the_kernels(cuda_device):
+    from aero_tpu_torch.hash import hash_elements_rows, merge_pairs
+    from aero_tpu_torch.merkle import commit_columns, commit_rows
+    rng = np.random.default_rng(4)
+    vals = rng.integers(0, P, size=(300, 9), dtype=np.uint64)
+    TK.reset_launches()
+    on_card = hash_elements_rows(from_u64(vals, cuda_device))
+    assert TK.LAUNCHES["blake2s_hash_columns"] == 1
+    assert torch.equal(on_card.cpu(), hash_elements_rows(from_u64(vals,
+                                                                  "cpu")))
+    pairs = merge_pairs(on_card)
+    assert TK.LAUNCHES["blake2s_merge_level"] == 1
+    assert torch.equal(pairs.cpu(), merge_pairs(on_card.cpu()))
+    rows = from_u64(vals[:256], cuda_device)
+    tree = commit_rows(rows)
+    assert tree.root == commit_columns(rows.t().contiguous()).root
+    assert tree.root == commit_rows(rows.cpu()).root
+    assert tree.prove(77) == commit_rows(rows.cpu()).prove(77)
+
+
 def test_lde_kernel_path_matches_plain(cuda_device):
     rng = np.random.default_rng(3)
     c = from_u64(rng.integers(0, P, size=(9, 1 << 12), dtype=np.uint64),

@@ -186,3 +186,46 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         TK.grind_pow(b"\0" * 32, 4, "meta")
 
+
+# ------------------------------------------------- the row-major front ends
+
+@pytest.mark.parametrize("w", [1, 2, 5, 9])
+def test_hash_elements_rows_matches_jax_and_the_spec(w):
+    from aero_tpu.spec.hashing import hash_elements
+    rows = RNG.integers(0, 2**64 - 1, size=(24, w), dtype=np.uint64)
+    got = TB.hash_elements_rows(from_u64(rows, "cpu"))
+    assert got.shape == (24, 8) and got.is_contiguous()
+    with jax.disable_jit():
+        # the unrolled form again; `JBJ.hash_elements_rows` itself where one
+        # block (w <= 2) keeps it off the fori_loop
+        want = np.stack([np.asarray(x) for x in
+                         JBJ.hash_rows_tuple(to_gf(rows))], axis=1)
+        if w <= 2:
+            assert np.array_equal(
+                want, np.asarray(JBJ.hash_elements_rows(to_gf(rows))))
+    assert np.array_equal(_np(got), want)
+    digests = TB.digests_to_bytes(got)
+    assert digests == JBJ.digests_to_bytes(want)
+    canon = rows % np.uint64((1 << 64) - (1 << 32) + 1)
+    assert digests == [hash_elements([int(v) for v in r]) for r in canon]
+    # the same words through the word-major message path
+    words = TB.felt_rows_to_words(from_u64(rows, "cpu"))
+    assert np.array_equal(_np(words),
+                          np.asarray(JBJ.felt_rows_to_words(to_gf(rows))))
+    assert torch.equal(TB.blake2s_words(words.T.contiguous(), 32 * w).T, got)
+
+
+@pytest.mark.parametrize("n", [1, 2, 32])
+def test_merge_pairs_matches_jax_and_hashlib(n):
+    d = RNG.integers(0, 2**32, size=(2 * n, 8), dtype=np.uint64)
+    got = TB.merge_pairs(_words(d))
+    assert got.shape == (n, 8) and got.is_contiguous()
+    with jax.disable_jit():
+        want = np.asarray(JBJ.merge_pairs(jnp.asarray(d.astype(np.uint32))))
+    assert np.array_equal(_np(got), want)
+    raw = d.astype("<u4")
+    assert TB.digests_to_bytes(got) == [
+        hashlib.blake2s(raw[2 * i].tobytes() + raw[2 * i + 1].tobytes())
+        .digest() for i in range(n)]
+    # a numpy array goes the same way as a tensor
+    assert TB.digests_to_bytes(want) == TB.digests_to_bytes(got)

@@ -41,7 +41,8 @@ def test_package_has_the_slice_modules():
               "io.cairo_memory", "tools.generate_proof",
               "tools.stark_parser", "tools.demo", "tools.check_constraints",
               "tools.regen_dryrun_golden", "parallel.mesh",
-              "parallel.dist_ntt", "parallel.sharded", "parallel.dryrun"):
+              "parallel.dist_ntt", "parallel.sharded", "parallel.dryrun",
+              "ntt.ntt_mxu", "tools.card_check"):
         assert "aero_tpu_torch." + m in mods, m
 
 

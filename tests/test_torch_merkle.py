@@ -48,3 +48,47 @@ def test_fri_layer_shape():
     assert tree.root == spec.root
     assert tree.prove_batch([9, 2]).serialize_nodes() == \
         spec.prove_batch([9, 2]).serialize_nodes()
+
+
+@pytest.mark.parametrize("w,n", [(2, 16), (9, 64), (5, 1)])
+def test_commit_rows_and_digests_match_jax(w, n):
+    import jax
+    from aero_tpu.hash import blake2s_jax as JBJ
+    from aero_tpu.merkle import commit_digests as jax_commit_digests
+    from aero_tpu_torch.hash import hash_elements_rows
+    from aero_tpu_torch.merkle import commit_digests, commit_rows
+    rng = np.random.default_rng(200 + w)
+    vals = rng.integers(0, P, size=(w, n), dtype=np.uint64)
+    rows = from_u64(vals.T.copy(), "cpu")
+    tree = commit_rows(rows)
+    assert tree.root == commit_columns(from_u64(vals, "cpu")).root
+    assert tree.root == commit_digests(hash_elements_rows(rows)).root
+    with jax.disable_jit():
+        leaves = np.stack([np.asarray(x) for x in
+                           JBJ.hash_rows_tuple(to_gf(vals.T.copy()))], axis=1)
+        ref = jax_commit_digests(jax.numpy.asarray(leaves))
+    assert tree.root == ref.root and tree.depth == ref.depth
+    leaf_t = torch.from_numpy(leaves.astype(np.int64))
+    assert commit_digests(leaf_t).root == ref.root
+    for index in sorted({0, n // 3, n - 1}):
+        assert tree.prove(index) == ref.prove(index)
+    if n > 1:
+        assert tree.prove_batch([0, n - 1]).serialize_nodes() == \
+            ref.prove_batch([0, n - 1]).serialize_nodes()
+
+
+def test_prove_opens_to_the_root():
+    from aero_tpu.spec.hashing import merge
+    from aero_tpu_torch.merkle import commit_rows
+    rng = np.random.default_rng(9)
+    vals = rng.integers(0, P, size=(32, 3), dtype=np.uint64)
+    tree = commit_rows(from_u64(vals, "cpu"))
+    spec = MerkleTree([hash_elements([int(v) for v in r]) for r in vals])
+    for index in (0, 5, 31):
+        path = tree.prove(index)
+        assert path == spec.prove(index) and len(path) == tree.depth + 1
+        node, i = path[0], index
+        for sib in path[1:]:
+            node = merge(sib, node) if i & 1 else merge(node, sib)
+            i >>= 1
+        assert node == tree.root

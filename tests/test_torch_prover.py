@@ -93,3 +93,53 @@ def test_prover_state_moves_between_devices():
     assert np.array_equal(to_u64(st.fri_layers[0].evals),
                           to_u64(st.deep))
     assert st.proof.to_bytes() == before
+
+
+# ----------------------------------------------------------------- FRI folds
+
+@pytest.mark.parametrize("m,ff", [(64, 8), (256, 8), (128, 4), (32, 2)])
+def test_fold_evals_gf_equals_fold_evals_and_aero_tpus(m, ff):
+    import jax
+    from aero_tpu import field as J
+    from aero_tpu.prover import fri as JFRI
+    from aero_tpu_torch.field import scalar
+    from aero_tpu_torch.prover import fri as TFRI
+    rng = np.random.default_rng(m + ff)
+    evals = rng.integers(0, F.P, size=m, dtype=np.uint64)
+    t = from_u64(evals, "cpu")
+    for alpha in (0, 1, 31337, F.P - 1, int(rng.integers(0, F.P, dtype=np.uint64))):
+        got = TFRI.fold_evals_gf(t, scalar(alpha, "cpu"), ff)
+        assert got.shape == (m // ff,)
+        assert torch.equal(got, TFRI.fold_evals(t, alpha, ff))
+        with jax.disable_jit():
+            a = J.to_gf(np.array(alpha, dtype=np.uint64))
+            want = J.from_gf(JFRI.fold_evals_gf(J.to_gf(evals), a, ff))
+        assert np.array_equal(to_u64(got), want)
+
+
+def test_fold_evals_gf_takes_another_offset():
+    from aero_tpu_torch.field import scalar
+    from aero_tpu_torch.prover import fri as TFRI
+    t = from_u64(np.arange(1, 65, dtype=np.uint64), "cpu")
+    assert torch.equal(TFRI.fold_evals_gf(t, scalar(5, "cpu"), 8, offset=3),
+                       TFRI.fold_evals(t, 5, 8, offset=3))
+    assert not torch.equal(TFRI.fold_evals(t, 5, 8, offset=3),
+                           TFRI.fold_evals(t, 5, 8))
+
+
+@pytest.mark.parametrize("m,ff", [(64, 8), (32, 4)])
+def test_transposed_rows_are_the_leaves_the_layer_commits(m, ff):
+    from aero_tpu import field as J
+    from aero_tpu.prover import fri as JFRI
+    from aero_tpu_torch.merkle import commit_columns, commit_rows
+    from aero_tpu_torch.prover import fri as TFRI
+    evals = np.random.default_rng(m).integers(0, F.P, size=m, dtype=np.uint64)
+    t = from_u64(evals, "cpu")
+    rows = TFRI.transposed_rows(t, ff)
+    assert rows.shape == (m // ff, ff)
+    assert np.array_equal(to_u64(rows),
+                          J.from_gf(JFRI.transposed_rows(J.to_gf(evals), ff)))
+    assert commit_rows(rows).root == commit_columns(t.reshape(ff, -1)).root
+    layer = TFRI.FriLayer(t, commit_rows(rows), ff)
+    assert torch.equal(layer.rows_at([0, 3, m // ff - 1]),
+                       rows[[0, 3, m // ff - 1]])

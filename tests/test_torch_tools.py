@@ -99,3 +99,45 @@ def test_regen_dryrun_golden_needs_a_card_without_cpu_flag(tmp_path):
     res = _run("aero_tpu_torch.tools.regen_dryrun_golden", "--out", str(out))
     assert res.returncode != 0
     assert not out.exists()
+
+
+# ------------------------------------------------------------- card_check
+
+def test_card_check_raises_without_a_card(capsys):
+    from aero_tpu_torch.tools import card_check
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        card_check.main()
+    assert "PASS" not in capsys.readouterr().out
+
+
+def test_card_check_cli_fails_without_a_card_and_has_no_cpu_flag():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    for args in ((), ("--cpu",)):
+        res = _run("aero_tpu_torch.tools.card_check", *args)
+        assert res.returncode != 0
+        assert "PASS" not in res.stdout and "failures" not in res.stdout
+
+
+def test_forward_step_root_equals_aero_tpus_entry():
+    """The forward step of `__graft_entry__.entry` (fib trace of 256 rows ->
+    LDE at blowup 8 -> Merkle root) and the port's, on the CPU."""
+    import numpy as np
+    import __graft_entry__ as graft
+    from aero_tpu.field import from_gf
+    from aero_tpu_torch.field import to_u64
+    from aero_tpu_torch.merkle import commit_columns
+    from aero_tpu_torch.ntt import intt, lde
+    from aero_tpu_torch.tools import card_check
+    jax_forward, (jax_trace,) = graft.entry()
+    forward, (trace,) = card_check.entry("cpu")
+    try:
+        root = forward(trace)
+    finally:
+        forward.close()
+    assert np.array_equal(to_u64(trace), from_gf(jax_trace))
+    want = np.asarray(jax_forward(jax_trace)).astype("<u4").tobytes()
+    assert root == want
+    assert root == commit_columns(lde(intt(trace), 3)).root
