@@ -34,8 +34,8 @@ _U32 = ctypes.c_uint32
 # entry point -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     # csrc/ntt.cu
-    "gl_colntt": [_P, _P, _P, _P, _I32, _I32, _I64, _I64,
-                  _I64, _I64, _I64, _I64, _I64, _P],
+    "gl_colntt": [_P, _P, _P, _P, _I32, _I32, _I64, _I64, _I64, _I64, _I64,
+                  _I64, _I64, _I64, _I64, _P],
     # csrc/blake2s.cu
     "blake2s_words": [_P, _I64, _I64, _I64, _P, _P],
     "blake2s_hash_columns": [_P, _I64, _I64, _P, _P],

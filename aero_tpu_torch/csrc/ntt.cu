@@ -7,16 +7,19 @@
 // data into shared memory, reading row r into slot bitrev(r); runs all
 // log2(L) radix-2 decimation-in-time stages there; and on the way out
 // multiplies by an optional cross-twiddle table (the 4-step's w^(j1*k2),
-// with 1/n folded in for the inverse). Strides are arguments, so pass 2
-// reads the pass-1 output transposed and writes the natural-order result
-// without a transpose in between.
+// with 1/n folded in for the inverse). Row, column and batch strides are
+// arguments, so pass 2 reads the pass-1 output transposed and writes the
+// natural-order result without a transpose in between, and the last pass of
+// a three-level transform (n > 2^24) takes its columns across the outermost
+// axis, the one that is contiguous in the result.
 //
 // What bounds it on this card: the 64-bit integer multiplies of gl_mul
 // (Hopper has no 64-bit multiplier and emulates each 64x64 product with
 // several 32-bit IMADs), then shared-memory bandwidth, with one barrier
 // per stage. The tile is capped at 4096 elements (32 KB), so L reaches
-// 4096 and two passes cover every size up to 2^24. A tile of 4096 rows is
-// one column wide, so its global accesses are not coalesced; wider tiles,
+// 4096 and two passes cover every size up to 2^24, three passes every size
+// up to 2^36. A tile of 4096 rows is one column wide, so its global
+// accesses are not coalesced; wider tiles,
 // register-resident radix-4/8 stages, and TMA or wgmma work are for
 // later PRs.
 #include <cuda_runtime.h>
@@ -31,8 +34,9 @@ __global__ void colntt_kernel(const u64* __restrict__ in,
                               u64* __restrict__ out,
                               const u64* __restrict__ tw,
                               const u64* __restrict__ cross, int log_L,
-                              int log_TC, long long C, long long in_sr,
-                              long long in_sc, long long out_sr,
+                              int log_TC, long long C, long long in_sb,
+                              long long in_sr, long long in_sc,
+                              long long out_sb, long long out_sr,
                               long long out_sc, long long cross_ld) {
   __shared__ u64 sm[1 << kLogMaxTile];
   const int L = 1 << log_L;
@@ -41,8 +45,8 @@ __global__ void colntt_kernel(const u64* __restrict__ in,
   const long long tiles = C >> log_TC;
   const long long b = blockIdx.x / tiles;
   const long long c0 = (blockIdx.x % tiles) << log_TC;
-  const u64* src = in + b * (C << log_L);
-  u64* dst = out + b * (C << log_L);
+  const u64* src = in + b * in_sb;
+  u64* dst = out + b * out_sb;
 
   // load: row r lands in slot bitrev(r); the unit-stride axis varies fastest
   for (int idx = threadIdx.x; idx < tile; idx += blockDim.x) {
@@ -96,23 +100,25 @@ __global__ void colntt_kernel(const u64* __restrict__ in,
 }  // namespace
 
 // in, out: B batches of L*C canonical felts each; element (r, c) of batch b
-// at b*L*C + r*sr + c*sc. tw: packed stage twiddles (max(L - 1, 1)).
+// at b*sb + r*sr + c*sc. tw: packed stage twiddles (max(L - 1, 1)).
 // cross: nullptr or a table read at r*cross_ld + c. TC = 2^log_TC columns
 // per block, L * TC <= 4096, TC divides C.
 extern "C" int gl_colntt(const void* in, void* out, const void* tw,
                          const void* cross, int log_L, int log_TC,
-                         long long C, long long B, long long in_sr,
-                         long long in_sc, long long out_sr, long long out_sc,
+                         long long C, long long B, long long in_sb,
+                         long long in_sr, long long in_sc, long long out_sb,
+                         long long out_sr, long long out_sc,
                          long long cross_ld, void* stream) {
   if (log_L < 0 || log_TC < 0 || log_L + log_TC > kLogMaxTile ||
       (C & ((1LL << log_TC) - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   const long long blocks = B * (C >> log_TC);
   if (blocks == 0) return (int)cudaSuccess;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int half_tile = 1 << (log_L + log_TC - (log_L + log_TC > 0 ? 1 : 0));
   const int threads = half_tile < 32 ? 32 : (half_tile > 256 ? 256 : half_tile);
   colntt_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const u64*)in, (u64*)out, (const u64*)tw, (const u64*)cross, log_L,
-      log_TC, C, in_sr, in_sc, out_sr, out_sc, cross_ld);
+      log_TC, C, in_sb, in_sr, in_sc, out_sb, out_sr, out_sc, cross_ld);
   return (int)cudaGetLastError();
 }

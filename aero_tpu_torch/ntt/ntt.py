@@ -2,14 +2,16 @@
 
 The counterpart of `aero_tpu/ntt/ntt.py:187-259`. Results are in natural
 order (evals[i] = poly(w^i)), batched over the leading axes. A CUDA tensor
-goes through kernel 1 (`ntt_cuda.ntt_cuda`); a CPU tensor takes the plain
+goes through kernel 1 (`ntt_cuda.ntt_cuda`: two passes up to 2^24 points,
+three beyond, the size alone decides); a CPU tensor takes the plain
 radix-2 decimation-in-time transform below. Both are the same DFT, so
 their canonical outputs are equal bit for bit.
 
 The coset LDE folds the offset into the coefficients (c_i * offset^i) and
 runs one zero-padded size-n*blowup transform, the single-NTT formulation
 of `aero_tpu.ntt.lde` (its coset-by-coset TPU formulation gives the same
-values).
+values), at every size: 2^24 coefficients at blowup 8 are one transform of
+2^27 points.
 
 No size goes to the int8 tensor-core 4-step (`ntt_mxu.py`), which
 `aero_tpu.ntt` dispatches 2^16..2^20 to on the TPU. On an NVIDIA H100 80GB

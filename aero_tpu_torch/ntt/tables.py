@@ -3,11 +3,14 @@
 Carries `aero_tpu/ntt/gl_np.py` (u64 Goldilocks arithmetic on numpy
 arrays) and the table builders of `aero_tpu/ntt/ntt_pallas.py:64-119`
 (`_bitrev`, `_tables_np`, `_expanded_stage_tw`), which the JAX package
-cannot lend without importing jax. Two changes: a pass may be 4096 long
-(the TPU kernel stopped at 2048), so two passes cover n up to 2^24; and
+cannot lend without importing jax. Three changes: a pass may be 4096 long
+(the TPU kernel stopped at 2048), so two passes cover n up to 2^24;
 `pack_stage_tw` packs the per-stage twiddles the way the CUDA kernel
-reads them. The last section holds the tables of the int8-limb 4-step
-transform (`ntt_mxu.py`; `aero_tpu/ntt/ntt_mxu.py:46-79`).
+reads them; and `three_level_split` says how a longer transform is cut
+into an outer pass and a two-pass inner transform. These functions take the
+pass limit as an argument (`MAX_L` by default), so that the levels can be
+exercised at small sizes. The last section holds the tables of the
+int8-limb 4-step transform (`ntt_mxu.py`; `aero_tpu/ntt/ntt_mxu.py:46-79`).
 """
 
 from __future__ import annotations
@@ -106,8 +109,22 @@ def pack_stage_tw(expanded: np.ndarray, L: int) -> np.ndarray:
                            for s in range(1, log_L + 1)])
 
 
+def three_level_split(n: int, max_l: int = MAX_L):
+    """(n3, n_inner) of a transform too long for two passes of `max_l`:
+    n = n3 * n_inner, an outer pass of size n3 <= max_l and an inner
+    two-pass transform of size n_inner <= max_l^2, the three passes about
+    equally long. Raises for a size that three passes do not reach."""
+    log_n = n.bit_length() - 1
+    if n < 1 or n != 1 << log_n:
+        raise ValueError(f"NTT size {n} is not a power of two")
+    if log_n > 3 * (max_l.bit_length() - 1):
+        raise ValueError(f"NTT size {n} exceeds three passes of {max_l}")
+    log3 = log_n // 3
+    return 1 << log3, n >> log3
+
+
 @functools.lru_cache(maxsize=48)
-def tables_np(n: int, invert: bool):
+def tables_np(n: int, invert: bool, max_l: int = MAX_L):
     """Table set of the two-pass 4-step NTT of size n:
     (n1, n2, rev1, rev2, p1, p2, ctw), as `ntt_pallas._tables_np`.
 
@@ -119,8 +136,8 @@ def tables_np(n: int, invert: bool):
     log_n = n.bit_length() - 1
     log1 = (log_n + 1) // 2
     n1, n2 = 1 << log1, n >> log1
-    if n1 > MAX_L or n2 > MAX_L:
-        raise ValueError(f"NTT size {n} exceeds two passes of {MAX_L}")
+    if n1 > max_l or n2 > max_l:
+        raise ValueError(f"NTT size {n} exceeds two passes of {max_l}")
     w = F.get_root_of_unity(log_n)
     if invert:
         w = F.inv(w)

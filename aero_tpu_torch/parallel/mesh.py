@@ -216,6 +216,11 @@ def _rank_entry(rank: int, fn: Callable, world: int, device_of, exchange: str,
         with open(tmp, "wb") as f:
             pickle.dump(result, f)
         os.replace(tmp, os.path.join(out_dir, f"rank{rank}.pkl"))
+    except BaseException as e:
+        # on record before the group closes and the peers lose this rank
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
+            f.write(f"{type(e).__name__}: {e}")
+        raise
     finally:
         mesh.close()
 
@@ -225,8 +230,9 @@ def run_ranks(fn: Callable, world: int, devices: Sequence, args: tuple = (),
     """Start `world` processes, rank r on `devices[r]`, each running
     `fn(mesh, *args)` (a module-level function), and return their results
     in rank order. The ranks meet through a file in a temporary directory.
-    A rank that raises or dies ends the others; ranks still running after
-    `timeout_s` are killed and the run raises."""
+    A rank that raises or dies ends the others, and the run raises with the
+    error of every rank that raised, each under its rank; ranks still
+    running after `timeout_s` are killed and the run raises."""
     import torch.multiprocessing as mp
     if len(devices) != world:
         raise ValueError("run_ranks: one device per rank")
@@ -245,6 +251,16 @@ def run_ranks(fn: Callable, world: int, devices: Sequence, args: tuple = (),
                 if time.monotonic() > deadline:
                     raise TimeoutError(
                         f"run_ranks: ranks still running after {timeout_s} s")
+        except Exception as e:
+            own = []
+            for r in range(world):
+                path = os.path.join(tmp, f"rank{r}.err")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        own.append(f"rank {r}: {f.read()}")
+            if own:
+                raise RuntimeError("run_ranks: " + "; ".join(own)) from e
+            raise
         finally:
             for p in ctx.processes:
                 if p.is_alive():

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (`aero_tpu_torch`).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--proof-out FILE | --profile]
 
 Needs one CUDA card, `nvcc` and `cuobjdump`; builds the kernels from
 `aero_tpu_torch/csrc` and the C++ VM from `aero_tpu_torch/vm/core` at first
-use. It imports the port only. Set-up, then eight phases, each of which raises
-on a failed check (so the script exits non-zero):
+use. It imports the port and `bench_gpu.py` only. Set-up, then nine phases,
+each of which raises on a failed check (so the script exits non-zero):
 
   0. card name, power limit and clocks, torch/CUDA versions, kernel and VM
      build times, instruction counts read from the kernels' SASS;
@@ -17,9 +17,14 @@ on a failed check (so the script exits non-zero):
      72 x 2^23 transform of the 2^20-row proof;
   3. the golden-parameter Miden proof (fib(10), 1024 rows, default
      options) through `aero_tpu_torch.sdk.prove` on the card: its sha256
-     must equal the committed `aero_tpu` digest, and it must verify;
-  4. a 2^20-row Miden proof of a real execution trace (2^23-point LDE
-     domain): it must verify; prints stage times, wall clocks, peak memory;
+     must equal the committed `aero_tpu` digest, and it must verify; then
+     `bench_gpu.bench_proof` (one proof to warm, one timed), same digest;
+  4. `bench_gpu.bench_proof_scale`: two 2^20-row Miden proofs of a real
+     execution trace (2^23-point LDE domain), cold and steady, then the same
+     program through `aero_tpu_torch.sdk.prove(min_rows=2^20)`: equal bytes
+     all three, the SDK's must verify, and its launches are the ones the
+     `kernels` line reports; prints stage times, wall clocks, peak memory,
+     sha256 (`--proof-out FILE` writes the proof with its public inputs);
   5. the served path: a `SubmissionServer` on an ephemeral port accepts the
      2^20-row proof (same receipt twice) and the golden proof, refuses a
      tampered nonce and answers garbage with HTTP 400;
@@ -50,6 +55,18 @@ on a failed check (so the script exits non-zero):
      run once more with every transform of 2^10..2^20 points patched
      through `ntt_mxu` here in the script, sha256 and roots unchanged; and
      `tools.card_check` in-process.
+  9. transforms past 2^24 points (three passes of the NTT kernel): round
+     trips at 2^25 and 2^27 points, 2^25 against the plain rendering, three
+     levels with the pass limit lowered to 8 on a batch of rows; then
+     `bench_gpu`'s kernel-level steps at their full shapes, each held
+     against plain versions (`bench_ntt`, `bench_merkle`, `bench_hash`,
+     `bench_mul`, `bench_lde_2e24`, which also holds the batched 2^24 LDE
+     equal to `ntt.lde`'s single 2^27-point transform), each printing its
+     metric record, and the proof records from the times of phases 3 and 4.
+
+`--profile` runs the set-up and no phase: it proves the 2^20-row trace five
+times and prints each proof's stage seconds, collector and allocator
+figures, the last one under `torch.profiler` (`profile_scale`).
 
 Kernel comparisons are exact (tolerance 0): finite-field and hash
 arithmetic. Launch counters are reset right before each proof and read
@@ -65,6 +82,7 @@ a JSON object with one entry per kernel of the proof path; the last line is
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import io
 import json
@@ -78,6 +96,9 @@ import urllib.request
 
 import numpy as np
 import torch
+
+import bench_gpu
+from bench_gpu import cuda_ms, host_ms, long_fib_source
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "torch_port",
@@ -96,22 +117,6 @@ MXU_LOGS = (10, 20)            # sizes phase 8 patches through ntt_mxu: both
                                # largest size the JAX package sends that way
 
 
-def long_fib_source(n_iters: int) -> str:
-    """Counter-driven fib loop, ~12 trace rows per iteration with a tiny
-    program ROM (the scale workload of `bench.py`, carried as text)."""
-    return f"""
-    begin
-        push.{n_iters}
-        dup.0 push.0 neq
-        while.true
-            movdn.2  swap dup.1 add  movup.2    # fib step under counter
-            push.1 sub
-            dup.0 push.0 neq
-        end
-    end
-    """
-
-
 def log(*args) -> None:
     print(*args, flush=True)
 
@@ -119,20 +124,6 @@ def log(*args) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
-
-
-def cuda_ms(fn, iters: int = 5) -> float:
-    """Mean device time of fn() over `iters` runs, after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def cuda_ms_queued(fn, iters: int, busy) -> float:
@@ -150,14 +141,6 @@ def cuda_ms_queued(fn, iters: int, busy) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def host_ms(fn) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -535,50 +518,61 @@ def phase_golden(dev):
     log("[phase 3] golden proof verifies under spec.verifier (air=port air)")
     for name in PATH_KERNELS:
         check(counts[name] > 0, f"{name} launched in the golden proof")
-    return res, digest
+    bench = bench_gpu.bench_proof(device=dev)
+    check(bench_gpu.check_golden(bench.once) == digest,
+          "bench_proof's proof == the golden digest")
+    log(f"[phase 3] bench_gpu.bench_proof: second proof {bench.dt:.3f} s, "
+        f"{bench.size} B, same sha256, verifies; launches "
+        f"{bench.once.run.launches}")
+    return res, digest, bench
 
 
-def phase_scale(dev, kernels):
-    from aero_tpu_torch.prover import STAGES
-    from aero_tpu_torch.utils import get_tracer
-    SPANS = ("execute",) + STAGES + ("to_pb",)
-    n_iters = ((1 << 20) - 64) // 12
-    src = long_fib_source(n_iters)
-    tracer = get_tracer()
-
-    def timed_proof():
-        tracer.reset()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = _prove(src, 1 << 20, dev)
-        return res, time.perf_counter() - t0
-
+def phase_scale(dev, kernels, proof_out):
+    """The 2^20-row proofs: cold and steady through
+    `bench_gpu.bench_proof_scale`, then the same program through `sdk.prove`,
+    whose launches the `kernels` line reports. Returns the SDK's result and
+    the bench."""
+    from aero_tpu_torch.spec.proof import dump_proof_file
+    r = bench_gpu.bench_proof_scale(device=dev)
+    check(r.prep.rows == 1 << 20, "scale trace is 2^20 rows")
+    data = r.cold.proof.to_bytes()
+    log(f"[phase 4] 2^20-row proof (cold): {r.cold_dt:.3f} s, {len(data)} B, "
+        f"peak device memory {r.cold.peak_bytes} B; launches "
+        f"{r.cold.launches}")
+    log("[phase 4] cold span seconds: "
+        + json.dumps({"execute": r.prep.seconds, **r.cold.spans}))
+    check(r.steady.proof.to_bytes() == data, "steady proof == cold proof")
+    log(f"[phase 4] 2^20-row proof (steady): {r.steady_dt:.3f} s, peak "
+        f"device memory {r.steady.peak_bytes} B")
+    log("[phase 4] steady span seconds: " + json.dumps(r.steady.spans))
     _reset_launches()
-    res, cold = timed_proof()
+    t0 = time.perf_counter()
+    res = _prove(r.prep.src, 1 << 20, dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
     counts = _launches()
-    stages = {s: tracer.total(s) for s in SPANS}
-    check(res.native_proof.context.trace_length == 1 << 20,
-          "scale trace is 2^20 rows")
-    peak = torch.cuda.max_memory_allocated()
-    size = len(res.native_proof.to_bytes())
-    log(f"[phase 4] 2^20-row proof (cold): {cold:.3f} s, {size} B, peak "
-        f"device memory {peak} B; launches {counts}")
-    log("[phase 4] cold span seconds: " + json.dumps(stages))
+    log(f"[phase 4] sdk.prove, 2^20 rows (VM run, proof, protobuf): {dt:.3f} "
+        f"s; launches {counts}")
+    check(res.native_proof.to_bytes() == data
+          and res.native_pub.to_bytes() == r.prep.pub.to_bytes(),
+          "sdk.prove's proof and public inputs == the bench's")
     for name in PATH_KERNELS:
         check(counts[name] > 0, f"{name} launched in the 2^20-row proof")
         kernels[name]["launches"] = counts[name]
     t0 = time.perf_counter()
-    _verify(res, src)
+    _verify(res, r.prep.src)
     log(f"[phase 4] 2^20-row proof verifies under spec.verifier (air=port"
         f" air) in {time.perf_counter() - t0:.3f} s")
-    res2, warm = timed_proof()
-    stages = {s: tracer.total(s) for s in SPANS}
-    check(res2.native_proof.to_bytes() == res.native_proof.to_bytes(),
-          "warm proof == cold proof")
-    log(f"[phase 4] 2^20-row proof (warm): {warm:.3f} s, peak device memory "
-        f"{torch.cuda.max_memory_allocated()} B")
-    log("[phase 4] warm span seconds: " + json.dumps(stages))
-    return res
+    log(f"[phase 4] 2^20-row proof sha256 "
+        f"{hashlib.sha256(data).hexdigest()}")
+    if proof_out:
+        os.makedirs(os.path.dirname(os.path.abspath(proof_out)),
+                    exist_ok=True)
+        with open(proof_out, "wb") as f:
+            f.write(dump_proof_file(res.native_pub, res.native_proof))
+        log(f"[phase 4] wrote the proof with its public inputs to "
+            f"{proof_out}")
+    return res, r
 
 
 def phase_served(scale_res, golden_res) -> None:
@@ -1040,7 +1034,193 @@ def phase_mxu(dev, rng, gen, golden_digest, dryrun_roots) -> None:
     check(rc == 0, "card_check passes")
 
 
-def main() -> int:
+def plain_merkle_root(leaves: torch.Tensor) -> bytes:
+    """The root over word-major leaf digests (8, n) by the plain merge,
+    2^20 digests a call."""
+    from aero_tpu_torch.hash import blake2s_cuda as bc
+    d = leaves
+    while d.shape[1] > 1:
+        d = torch.cat([bc.merge_level_plain(d[:, a:a + (1 << 20)].contiguous())
+                       for a in range(0, d.shape[1], 1 << 20)], dim=1)
+    return d[:, 0].cpu().numpy().astype("<u4").tobytes()
+
+
+def phase_bench(dev, rng, gen, sass, clock_hz, proof_bench, scale_bench):
+    from aero_tpu_torch.field import P, from_u64, to_u64
+    from aero_tpu_torch.hash import blake2s_cuda as bc
+    from aero_tpu_torch.ntt import coset_pad, intt, ntt, ntt_plain
+    from aero_tpu_torch.ntt import ntt_cuda as nc
+    from aero_tpu_torch.spec import field as F
+
+    # three levels with a pass limit of 8: every stride of the last pass,
+    # which runs once for each row of the batch
+    for logn in (7, 8, 9):
+        x = from_u64(rng.integers(0, P, size=(3, 2, 1 << logn),
+                                  dtype=np.uint64), dev)
+        for inv in (False, True):
+            nc.reset_launches()
+            k = nc.ntt_cuda(x, inv, max_l=8)
+            check(nc.LAUNCHES["gl_colntt"] == 2 + 6,
+                  "three levels: two launches and one a row")
+            check(torch.equal(k, ntt_plain(x, inv))
+                  and torch.equal(k, nc.ntt_four_step_plain(x, inv, 8)),
+                  f"ntt 2^{logn} x 6, pass limit 8, inv={inv}: kernel == "
+                  "both plain versions")
+    log("[phase 9] three-level ntt/intt 2^7..2^9 x 3 x 2 with the pass limit "
+        "at 8: kernel == both plain versions")
+
+    for logn in (25, 27):
+        n = 1 << logn
+        x = device_felts((1, n), gen, dev)
+        t0 = time.perf_counter()
+        nc.reset_launches()
+        k = ntt(x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        check(nc.LAUNCHES["gl_colntt"] == 3, "three launches for one row")
+        if logn == 25:
+            p = nc.ntt_four_step_plain(x, False)
+            err = max_abs_err(k, p)
+            check(err == 0, "ntt 2^25 kernel == three-pass plain rendering")
+            pms = cuda_ms(lambda: nc.ntt_four_step_plain(x, False), iters=1)
+            del p
+        else:
+            err, pms = 0, float("nan")
+        back = intt(k)
+        check(torch.equal(back, x), f"intt(ntt(x)) == x at 2^{logn}")
+        del back
+        ms = cuda_ms(lambda: ntt(x), iters=3)
+        # both directions in turn: the cache holds both sets of tables
+        pair_ms = cuda_ms(lambda: intt(ntt(x)), iters=2)
+        check(nc.table_cache_bytes() >= 2 * n * 8,
+              f"the forward and the inverse tables of 2^{logn} stay cached")
+        log(f"[phase 9] ntt 2^{logn} x 1 (3 launches; split "
+            f"{nc.tables.three_level_split(n)}): round trip exact; kernel "
+            f"{ms:.3f} ms, ntt then intt in turn {pair_ms:.3f} ms a pair, "
+            f"first call with its tables {first_s:.3f} s, plain "
+            f"rendering {pms:.3f} ms, max_abs_err {err}; table cache "
+            f"{nc.table_cache_bytes()} B of {nc.TABLE_CACHE_BYTES}")
+        # bytes: the row in and out and the outer cross table, each once
+        record({}, None, "", err, ms, pms, 3 * n * 8, n * logn // 2,
+               sass["butterfly"], clock_hz)
+        del x, k
+    nc.clear_table_cache()
+    torch.cuda.empty_cache()
+
+    r = bench_gpu.bench_ntt(device=dev)
+    x = bench_gpu.draw_felts(np.random.default_rng(0), (8, 1 << 18), dev)
+    want = ntt_plain(coset_pad(ntt_plain(x, True), 3))[..., :1 << 18]
+    check(torch.equal(r.out, want), "bench_ntt's pipeline == radix-2 plain")
+    log("[phase 9] bench_ntt 8 x 2^18, blowup 8: == the plain versions")
+    bench_gpu.emit_ntt(r)
+    del x, want, r
+
+    r = bench_gpu.bench_merkle(device=dev)
+    h = bench_gpu.bench_hash(device=dev)
+    cols = bench_gpu.draw_felts(np.random.default_rng(1), (72, 1 << 20), dev)
+    err, pms = plain_chunks(bc.hash_columns_plain, cols, 1, h.digests,
+                            chunk=1 << 18)
+    check(err == 0, "bench_hash's digests == plain at 72 x 2^20")
+    root = plain_merkle_root(h.digests)
+    check(r.root == root, "bench_merkle's root == the plain versions' root")
+    log(f"[phase 9] bench_merkle / bench_hash 72 x 2^20: digests and root "
+        f"{root.hex()} == the plain versions (plain leaves {pms:.3f} ms)")
+    bench_gpu.emit_merkle(r)
+    bench_gpu.emit_hash(h)
+    del cols, h, r
+
+    r = bench_gpu.bench_mul(device=dev)
+    a = bench_gpu.draw_felts(np.random.default_rng(2), (1 << 21,), dev)
+    idx = torch.arange(0, 1 << 21, (1 << 21) // 64 + 1, device=dev)
+    got, src = to_u64(r.out[idx]), to_u64(a[idx])
+    check(all(int(g) == F.mul(int(v), int(v)) for g, v in zip(got, src)),
+          "bench_mul == spec.field.mul on a sample")
+    log(f"[phase 9] bench_mul 2^21: == spec.field.mul on {len(got)} samples")
+    bench_gpu.emit_mul(r, bench_gpu.mul_launches(device=dev))
+    del a, r
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = bench_gpu.bench_lde_2e24(device=dev)
+    log(f"[phase 9] bench_lde_2e24: the batched 8 x 2^24 transform == "
+        f"ntt.lde's single 2^27-point transform; {time.perf_counter() - t0:.3f}"
+        f" s with inputs and tables, peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    bench_gpu.emit_lde24(r)
+    del r
+    nc.clear_table_cache()
+    torch.cuda.empty_cache()
+
+    bench_gpu.emit_scale(scale_bench)
+    bench_gpu.emit_proof(proof_bench)
+
+
+def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
+    """`--profile`: what a repeated 2^20-row proof costs and where.
+    `repeats` proofs of one prepared trace in a row and one more after the
+    program was executed anew, each with its stage seconds, the seconds the
+    Python collector ran, its collections and the allocator's reserved
+    bytes; then one more proof under `torch.profiler` (device kernel time,
+    launches, idle share, the kernels that take most)."""
+    from torch.profiler import ProfilerActivity, profile
+    src = long_fib_source(((1 << 20) - 64) // 12)
+    prep = bench_gpu._prepare(src, [0, 1], 1 << 20, 16, dev)
+    log(f"[profile] set-up (VM, public inputs, trace to the device): "
+        f"{prep.seconds:.3f} s")
+    gc_s = [0.0, 0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_s[1] = time.perf_counter()
+        else:
+            gc_s[0] += time.perf_counter() - gc_s[1]
+
+    last_s = 0.0
+
+    def one(i, fresh):
+        nonlocal last_s
+        gc_s[0] = 0.0
+        before = [g["collections"] for g in gc.get_stats()]
+        run = bench_gpu._timed_prove(prep)
+        after = [g["collections"] for g in gc.get_stats()]
+        last_s = run.seconds
+        log("[profile] " + json.dumps({
+            "proof": i, "fresh_setup": fresh, "seconds": run.seconds,
+            "spans": run.spans, "gc_seconds": gc_s[0],
+            "gc_collections": [a - b for a, b in zip(after, before)],
+            "peak_bytes": run.peak_bytes,
+            "reserved_bytes": torch.cuda.memory_reserved(dev)}))
+
+    gc.callbacks.append(on_gc)
+    try:
+        for i in range(repeats):
+            one(i + 1, i == 0)
+        # as a caller that executes the program anew for each proof does
+        del prep
+        prep = bench_gpu._prepare(src, [0, 1], 1 << 20, 16, dev)
+        one(repeats + 1, True)
+    finally:
+        gc.callbacks.remove(on_gc)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = bench_gpu._timed_prove(prep)
+    launches, dev_s, rows = bench_gpu._device_kernels(prof)
+    check(launches > 0, "torch.profiler saw the device's kernels")
+    log("[profile] under torch.profiler: " + json.dumps({
+        "seconds": run.seconds, "device_kernel_seconds": dev_s,
+        "device_launches": launches,
+        "idle_share": 1 - dev_s / run.seconds,
+        "idle_share_of_the_last_proof_not_profiled": 1 - dev_s / last_s,
+        "spans": run.spans,
+        "top": [{"kernel": k[:80], "launches": c, "seconds": s}
+                for k, c, s in rows[:top]]}))
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    proof_out = argv[argv.index("--proof-out") + 1] \
+        if "--proof-out" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -1072,6 +1252,9 @@ def main() -> int:
     log(f"[set-up] VM ready (built at first run) in "
         f"{time.perf_counter() - t0:.3f} s")
     dev = torch.device("cuda", 0)
+    if "--profile" in argv:
+        profile_scale(dev)
+        return 0
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -1088,14 +1271,18 @@ def main() -> int:
     phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz)
     phase_ntt(dev, rng, gen, kernels, sass, clock_hz)
     torch.cuda.empty_cache()
-    golden_res, golden_digest = phase_golden(dev)
-    scale_res = phase_scale(dev, kernels)
+    golden_res, golden_digest, proof_bench = phase_golden(dev)
+    scale_res, scale_bench = phase_scale(dev, kernels, proof_out)
+    scale_bench = scale_bench._replace(       # phase 9 needs the times only
+        prep=scale_bench.prep._replace(trace=None, air=None))
     phase_served(scale_res, golden_res)
     phase_parser(dev)
     dryrun_roots = phase_dryrun(dev, gen, kernels)
     del scale_res
     torch.cuda.empty_cache()
     phase_mxu(dev, rng, gen, golden_digest, dryrun_roots)
+    torch.cuda.empty_cache()
+    phase_bench(dev, rng, gen, sass, clock_hz, proof_bench, scale_bench)
 
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

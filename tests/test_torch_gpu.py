@@ -52,6 +52,58 @@ def test_ntt_kernel_matches_plain(cuda_device, logn):
     assert torch.equal(ntt_cuda.ntt_cuda(ntt_cuda.ntt_cuda(x), True), x)
 
 
+@pytest.mark.parametrize("max_l,logn", [(4, 5), (4, 6), (8, 7), (8, 9),
+                                        (16, 10), (16, 12)])
+def test_three_level_ntt_kernel_with_a_lowered_pass_limit(cuda_device, max_l,
+                                                          logn):
+    """Three passes of the kernel at small sizes, on a batch of rows: the
+    last pass runs once a row with its own batch strides."""
+    rng = np.random.default_rng(100 + logn)
+    x = from_u64(rng.integers(0, P, size=(2, 3, 1 << logn), dtype=np.uint64),
+                 cuda_device)
+    for invert in (False, True):
+        ntt_cuda.reset_launches()
+        k = ntt_cuda.ntt_cuda(x, invert, max_l=max_l)
+        assert ntt_cuda.LAUNCHES["gl_colntt"] == 2 + 6
+        assert torch.equal(k, ntt_plain(x, invert))
+        assert torch.equal(k, ntt_cuda.ntt_four_step_plain(x, invert, max_l))
+        assert torch.equal(k.cpu(), ntt_cuda.ntt_cuda(x.cpu(), invert, max_l))
+
+
+def test_ntt_of_2e25_points_round_trip_and_plain_equality(cuda_device):
+    """Past two passes of 4096: three launches, the inverse undoes the
+    forward, and both equal the plain rendering of the three passes."""
+    rng = np.random.default_rng(25)
+    x = from_u64(rng.integers(0, P, size=(1, 1 << 25), dtype=np.uint64),
+                 cuda_device)
+    ntt_cuda.reset_launches()
+    k = ntt_cuda.ntt_cuda(x)
+    assert ntt_cuda.LAUNCHES["gl_colntt"] == 3
+    assert torch.equal(k, ntt_cuda.ntt_four_step_plain(x, False))
+    back = ntt_cuda.ntt_cuda(k, True)
+    assert torch.equal(back, x)
+    assert torch.equal(back, ntt_cuda.ntt_four_step_plain(k, True))
+    ntt_cuda.clear_table_cache()
+
+
+def test_lde_past_the_two_pass_limit_on_the_card(cuda_device):
+    """lde of 2^22 coefficients at blowup 8 is one 2^25-point transform:
+    equal to the cosets transformed one by one at 2^22 points."""
+    from aero_tpu_torch.field import mul, power_series
+    from aero_tpu_torch.spec import field as F
+    rng = np.random.default_rng(22)
+    n = 1 << 22
+    c = from_u64(rng.integers(0, P, size=(1, n), dtype=np.uint64),
+                 cuda_device)
+    got = lde(c, 3).reshape(n, 8)
+    w_m = F.get_root_of_unity(25)
+    for t in range(8):
+        sc = power_series(F.mul(F.DOMAIN_OFFSET, F.exp(w_m, t)), n,
+                          device=cuda_device)
+        assert torch.equal(got[:, t], ntt_cuda.ntt_cuda(mul(c, sc))[0])
+    ntt_cuda.clear_table_cache()
+
+
 @pytest.mark.parametrize("shape", [(3, 64), (2, 256), (2, 4, 1 << 10),
                                    (8, 1 << 13), (2, 1 << 18)])
 def test_ntt_mxu_on_the_card_equals_the_ntt_kernel(cuda_device, shape):

@@ -1,10 +1,12 @@
 """aero_tpu_torch stands alone, and chip_smoke.py does not run on the CPU.
 
-- Importing every module of the package (and chip_smoke.py) leaves `jax`,
+- Importing every module of the package (and chip_smoke.py, bench_gpu.py)
+  leaves `jax`,
   `aero_tpu` and every `aero_tpu.*` out of sys.modules; no source of the
   port imports either.
 - With only `aero_tpu_torch/` on the path (no `aero_tpu/` beside it) the
-  entry points import, prove on the CPU and parse the proof.
+  entry points import, prove on the CPU and parse the proof, and
+  `bench_gpu.main` runs its plan at a small size.
 - chip_smoke.py exits non-zero and prints no result without a card.
 - The kernel build raises when nvcc is missing (no silent fallback).
 """
@@ -48,7 +50,7 @@ def test_package_has_the_slice_modules():
 
 def test_importing_every_module_leaves_jax_out():
     code = ("import sys, importlib\n"
-            f"for m in {_modules()!r} + ['chip_smoke']:\n"
+            f"for m in {_modules()!r} + ['chip_smoke', 'bench_gpu']:\n"
             "    importlib.import_module(m)\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'aero_tpu')))\n")
@@ -60,7 +62,8 @@ def test_importing_every_module_leaves_jax_out():
 
 def test_no_source_imports_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|aero_tpu)(\.|\s)", re.M)
-    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "bench_gpu.py")]
     for d, _, files in os.walk(PKG):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     for p in paths:
@@ -92,6 +95,30 @@ def test_port_runs_with_aero_tpu_absent(tmp_path):
     assert res.stdout.startswith('["0x48"')
 
 
+def test_bench_gpu_runs_with_aero_tpu_absent(tmp_path):
+    """`bench_gpu.py` beside the port and nothing else of the repo: its
+    plan runs on the CPU at a small size and records every metric."""
+    os.symlink(PKG, tmp_path / "aero_tpu_torch")
+    os.symlink(os.path.join(ROOT, "bench_gpu.py"), tmp_path / "bench_gpu.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import sys, importlib.util as u, bench_gpu as b\n"
+            "assert u.find_spec('aero_tpu') is None and u.find_spec('bench') "
+            "is None\n"
+            "rc = b.main(['--all'], device='cpu', sizes={'ntt': dict(log_n=5, "
+            "cols=2), 'merkle': dict(log_leaves=4, row_width=3), 'scale': "
+            "dict(log_rows=6, grind=2), 'proof': dict(min_rows=64, grind=2), "
+            "'lde24': dict(log_n=5), 'hash': dict(log_leaves=4, row_width=3),"
+            " 'mul': dict(log_n=5)})\n"
+            "assert not any(k.split('.')[0] in ('jax', 'aero_tpu', 'bench') "
+            "for k in sys.modules)\n"
+            "sys.exit(rc)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    lines = [l for l in res.stdout.splitlines() if l.startswith("{")]
+    assert len(lines) == 9 and not any('"skipped"' in l for l in lines)
+
+
 def test_parallel_exports_the_names_of_aero_tpu_parallel():
     """Every name `aero_tpu.parallel` exports but `gf_scalar` (a scalar is a
     Python int in the port); read from the source, not by importing it."""
@@ -118,9 +145,13 @@ def test_dryrun_runs_with_aero_tpu_absent(tmp_path):
 
 def test_scale_program_is_bench_long_fib_source():
     import bench
+    import bench_gpu
     import chip_smoke
+    assert chip_smoke.long_fib_source is bench_gpu.long_fib_source
+    assert chip_smoke.cuda_ms is bench_gpu.cuda_ms
+    assert chip_smoke.host_ms is bench_gpu.host_ms
     for n in (1, 87376):
-        assert chip_smoke.long_fib_source(n) == bench.long_fib_source(n)
+        assert bench_gpu.long_fib_source(n) == bench.long_fib_source(n)
 
 
 def _run_smoke(cwd):

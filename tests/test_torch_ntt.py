@@ -115,3 +115,98 @@ def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         ntt_cuda.ntt_cuda(x)
 
+
+# ------------------------------------------- past two passes: three levels
+
+THREE_LEVEL = [(4, 5), (4, 6), (8, 7), (8, 8), (8, 9), (16, 9), (16, 10),
+               (16, 12)]
+
+
+@pytest.mark.parametrize("max_l,logn", THREE_LEVEL)
+@pytest.mark.parametrize("invert", [False, True])
+def test_three_levels_with_the_pass_limit_lowered(max_l, logn, invert):
+    """n > max_l^2: the strided three-pass route of the wrapper, its plain
+    rendering by reshapes, the two-pass rendering and radix-2 agree, on a
+    batch of rows (the last pass runs once a row)."""
+    n = 1 << logn
+    assert (logn + 1) // 2 > max_l.bit_length() - 1      # not two passes
+    n3, n_inner = tables.three_level_split(n, max_l)
+    assert n3 * n_inner == n and n3 <= max_l and n_inner <= max_l * max_l
+    x = _cols(logn, cols=6, seed=21).reshape(2, 3, n)
+    t = T.from_u64(x, "cpu")
+    got = ntt_cuda.ntt_cuda(t, invert, max_l=max_l)
+    assert torch.equal(got, TN.ntt_plain(t, invert))
+    assert torch.equal(got, ntt_cuda.ntt_four_step_plain(t, invert, max_l))
+    assert torch.equal(got, ntt_cuda.ntt_four_step_plain(t, invert))
+    assert torch.equal(got, ntt_cuda.ntt_cuda(t, invert))
+
+
+@pytest.mark.parametrize("max_l,logn", [(4, 6), (8, 7), (8, 9), (16, 10)])
+def test_three_levels_match_jax(max_l, logn):
+    x = _cols(logn, cols=2, seed=23)
+    t = T.from_u64(x, "cpu")
+    for invert, jfn in ((False, JN.ntt), (True, JN.intt)):
+        got = ntt_cuda.ntt_cuda(t, invert, max_l=max_l)
+        assert np.array_equal(T.to_u64(got), _jax(jfn, x))
+
+
+@pytest.mark.parametrize("max_l,logn,log_blowup", [(4, 3, 3), (8, 4, 3),
+                                                   (8, 6, 3), (16, 8, 2)])
+def test_lde_past_the_two_pass_limit_matches_jax(max_l, logn, log_blowup):
+    """What `lde` hands the transform on the card, a zero-padded row of
+    n << log_blowup points, through three levels: equal to `aero_tpu`'s
+    coset-by-coset LDE and to the port's `lde`."""
+    assert logn + log_blowup > 2 * (max_l.bit_length() - 1)
+    x = _cols(logn, seed=29)
+    t = T.from_u64(x, "cpu")
+    got = ntt_cuda.ntt_cuda(TN.coset_pad(t, log_blowup), False, max_l=max_l)
+    assert np.array_equal(T.to_u64(got), _jax(JN.lde, x, log_blowup))
+    assert torch.equal(got, TN.lde(t, log_blowup))
+
+
+def test_three_level_split_sizes():
+    assert tables.three_level_split(1 << 25) == (1 << 8, 1 << 17)
+    assert tables.three_level_split(1 << 27) == (1 << 9, 1 << 18)
+    assert tables.three_level_split(1 << 36) == (1 << 12, 1 << 24)
+    with pytest.raises(ValueError, match=str(1 << 37)):
+        tables.three_level_split(1 << 37)
+    with pytest.raises(ValueError, match="96"):
+        tables.three_level_split(96)
+
+
+def test_a_size_that_cannot_be_served_raises_with_its_size():
+    t = T.from_u64(_cols(7), "cpu")
+    with pytest.raises(ValueError, match="128"):
+        ntt_cuda.ntt_cuda(t, False, max_l=2)             # four levels
+    with pytest.raises(ValueError, match="96"):
+        ntt_cuda.ntt_cuda(t[:, :96].contiguous())        # not a power of two
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_cuda.ntt_cuda(t[:, ::2])
+    with pytest.raises(ValueError, match="8192"):
+        ntt_cuda.ntt_cuda(t, False, max_l=8192)          # beyond the kernel
+
+
+def test_table_cache_is_bounded_by_bytes(monkeypatch):
+    """The cache of device tables keeps at most TABLE_CACHE_BYTES, drops the
+    least recently used set first and does not keep a set that is larger
+    than the whole budget."""
+    ntt_cuda.clear_table_cache()
+    assert ntt_cuda.table_cache_bytes() == 0
+    dev = torch.device("cpu")
+    one = ntt_cuda._nbytes(ntt_cuda._tables(1 << 10, False, dev))
+    assert one >= (1 << 10) * 8                          # the cross table
+    monkeypatch.setattr(ntt_cuda, "TABLE_CACHE_BYTES", 2 * one + 64)
+    ntt_cuda._tables(1 << 10, True, dev)
+    assert ntt_cuda.table_cache_bytes() == 2 * one
+    first = ntt_cuda._tables(1 << 10, False, dev)        # now the newest
+    ntt_cuda._outer_tables(1 << 9, False, dev, 8)        # 512-element cross
+    keys = list(ntt_cuda._cache)
+    assert (1 << 10, True, dev, tables.MAX_L) not in keys
+    assert ntt_cuda._tables(1 << 10, False, dev) is first
+    assert ntt_cuda.table_cache_bytes() <= ntt_cuda.TABLE_CACHE_BYTES
+    big = ntt_cuda._tables(1 << 12, False, dev)          # over the budget
+    assert ntt_cuda._nbytes(big) > ntt_cuda.TABLE_CACHE_BYTES
+    assert (1 << 12, False, dev, tables.MAX_L) not in ntt_cuda._cache
+    assert ntt_cuda._tables(1 << 12, False, dev) is not big
+    ntt_cuda.clear_table_cache()
+    assert ntt_cuda.table_cache_bytes() == 0

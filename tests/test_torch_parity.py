@@ -54,7 +54,8 @@ NO_COUNTERPART = {
     ("ntt.ntt_pallas", "supported"):
         "it told the dispatch which sizes the TPU kernel took so that the "
         "others went to the jnp path; `ntt_cuda` is the only route for a "
-        "CUDA tensor, takes every power of two up to 2^24 and raises beyond",
+        "CUDA tensor, takes every power of two that three passes of 4096 reach "
+        "(2^36) and raises beyond",
     ("parallel.sharded", "gf_scalar"):
         "it made the traced GF scalars of a jitted stage; the port's stages "
         "take their Fiat-Shamir scalars as Python ints (`field.scalar` makes "
