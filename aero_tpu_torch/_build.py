@@ -31,6 +31,8 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
+_OPERAND = [_P, _I32, _I64, _I64, _I64, _I64]   # pointer, mode, d1, s1, m0, s0
 # entry point -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
     # csrc/ntt.cu
@@ -41,6 +43,13 @@ SIGNATURES = {
     "blake2s_hash_columns": [_P, _I64, _I64, _P, _P],
     "blake2s_merge_level": [_P, _I64, _P, _P],
     "blake2s_grind_pow": [_U32] * 8 + [_I64, _I64, _I64, _I32, _P, _P, _P],
+    # csrc/field.cu
+    "gl_elementwise": _OPERAND + _OPERAND + [_P, _I64, _I32, _U64, _P],
+    "gl_scan_tiles": [_P, _P, _P, _I64, _I64, _I64, _I32, _P],
+    "gl_scan_carry": [_P, _P, _I64, _I64, _I64, _I32, _P],
+    "gl_constraint_merge": [_P] * 6 + [_I32, _I32, _I64, _P],
+    "gl_deep_combine": [_P, _I64, _I32] * 3 + [_P] * 7 + [_I64] + [_P] * 4
+                       + [_I64, _P],
 }
 
 _lib = None

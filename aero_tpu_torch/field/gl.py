@@ -12,9 +12,14 @@ bit patterns: additions and products wrap mod 2^64 exactly as u64 would;
 so an unsigned compare XORs the sign bit into both operands first
 (`_ult`). Products use 32-bit limbs, whose partial products fit a u64.
 
-These are plain tensor ops on CPU and CUDA alike. The hot transforms that
-use them on the card (the NTT, blake2s) are CUDA kernels under `ntt/` and
-`hash/`; everything here is the algebra around them.
+The field ops (`add`, `sub`, `neg`, `mul`, `square`, `mul_scalar`,
+`pow_loop`, `inv`) and the scans (`gf_cumprod`, `gf_cumsum`) send a CUDA
+tensor to the kernels of `csrc/field.cu` through `gl_cuda` (K1, K2) and a
+CPU tensor to their plain versions here (`add_plain`, ..., written in the
+torch ops described above), which are also the oracle the kernels are held
+to. Composite functions (`batch_inv`, `gf_sum`, `power_series`, ...) are
+written over the dispatching ops and so run on either; `batch_inv_plain`
+and `gf_sum_plain` are their renderings in the plain ops alone.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from . import gl_cuda
 
 P = (1 << 64) - (1 << 32) + 1
 EPSILON = (1 << 32) - 1            # 2^64 mod p
@@ -106,18 +113,18 @@ def canonicalize(a: torch.Tensor) -> torch.Tensor:
     return torch.where((a ^ _SIGN) < _P_FLIP, a, a - _P_I64)
 
 
-def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def add_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     nb = _P_I64 - b                       # p - b, in [1, p]
     return torch.where(_ult(a, nb), a + b, a - nb)
 
 
-def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def sub_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     d = a - b
     return torch.where(_ult(a, b), d + _P_I64, d)
 
 
-def neg(a: torch.Tensor) -> torch.Tensor:
-    return sub(torch.zeros_like(a), a)
+def neg_plain(a: torch.Tensor) -> torch.Tensor:
+    return sub_plain(torch.zeros_like(a), a)
 
 
 def _reduce(lo: torch.Tensor, c2: torch.Tensor, c3: torch.Tensor
@@ -132,7 +139,7 @@ def _reduce(lo: torch.Tensor, c2: torch.Tensor, c3: torch.Tensor
     return canonicalize(r)
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     al, ah = a & _M32, (a >> 32) & _M32
     bl, bh = b & _M32, (b >> 32) & _M32
     ll, lh, hl, hh = al * bl, al * bh, ah * bl, ah * bh   # u64 each
@@ -142,6 +149,52 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     c3 = ((hh >> 32) & _M32) + (t2 >> 32)
     lo = (ll & _M32) | ((t1 & _M32) << 32)
     return _reduce(lo, t2 & _M32, c3)
+
+
+def pow_loop_plain(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e by square-and-multiply over the bits of a host exponent."""
+    res = torch.full_like(a, 1)
+    base = a
+    while e:
+        if e & 1:
+            res = mul_plain(res, base)
+        e >>= 1
+        if e:
+            base = mul_plain(base, base)
+    return res
+
+
+def inv_plain(a: torch.Tensor) -> torch.Tensor:
+    return pow_loop_plain(a, P - 2)
+
+
+# The ops below take a CUDA tensor to kernel K1 (`gl_cuda`, csrc/field.cu):
+# one launch an op, operands read as they lie (a 0-d scalar from device
+# memory, a broadcast or a strided view through the kernel's indexing).
+# A CPU tensor takes the plain version above.
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if gl_cuda.on_cuda(a, b):
+        return gl_cuda.elementwise(a, b, gl_cuda.ADD)
+    return add_plain(a, b)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if gl_cuda.on_cuda(a, b):
+        return gl_cuda.elementwise(a, b, gl_cuda.SUB)
+    return sub_plain(a, b)
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    if gl_cuda.on_cuda(a):
+        return sub(torch.zeros((), dtype=torch.int64, device=a.device), a)
+    return neg_plain(a)
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if gl_cuda.on_cuda(a, b):
+        return gl_cuda.elementwise(a, b, gl_cuda.MUL)
+    return mul_plain(a, b)
 
 
 def square(a: torch.Tensor) -> torch.Tensor:
@@ -186,15 +239,9 @@ def pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
 
 def pow_loop(a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e by square-and-multiply over the bits of a host exponent."""
-    res = torch.full_like(a, 1)
-    base = a
-    while e:
-        if e & 1:
-            res = mul(res, base)
-        e >>= 1
-        if e:
-            base = square(base)
-    return res
+    if gl_cuda.on_cuda(a):
+        return gl_cuda.power(a, e)
+    return pow_loop_plain(a, e)
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
@@ -215,39 +262,77 @@ def _scan(x: torch.Tensor, op, axis: int) -> torch.Tensor:
     return x.movedim(-1, axis)
 
 
+def gf_cumprod_plain(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return _scan(x, mul_plain, axis)
+
+
+def gf_cumsum_plain(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return _scan(x, add_plain, axis)
+
+
 def gf_cumprod(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    return _scan(x, mul, axis)
+    """Inclusive prefix products along `axis`: kernel K2 on the card."""
+    if gl_cuda.on_cuda(x):
+        return gl_cuda.scan(x.movedim(axis, -1), gl_cuda.MUL).movedim(-1, axis)
+    return gf_cumprod_plain(x, axis)
 
 
 def gf_cumsum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    return _scan(x, add, axis)
+    """Inclusive prefix sums along `axis`: kernel K2 on the card."""
+    if gl_cuda.on_cuda(x):
+        return gl_cuda.scan(x.movedim(axis, -1), gl_cuda.ADD).movedim(-1, axis)
+    return gf_cumsum_plain(x, axis)
+
+
+def _batch_inv(a: torch.Tensor, axis: int, cumprod, inv_, mul_
+               ) -> torch.Tensor:
+    """Montgomery batch inversion along `axis`: one Fermat inversion per
+    lane plus prefix/suffix product scans (`jax_gl.batch_inv`). A zero
+    anywhere in a lane makes the whole lane zero (its total has no
+    inverse), as in the JAX package."""
+    x = a.movedim(axis, -1)
+    prod = cumprod(x)
+    total_inv = inv_(prod[..., -1:])
+    suffix = cumprod(x.flip(-1)).flip(-1)
+    one = torch.ones_like(x[..., :1])
+    suffix_excl = torch.cat([suffix[..., 1:], one], dim=-1)
+    inv_prefix = mul_(suffix_excl, total_inv)            # 1 / prod_i
+    shifted = torch.cat([one, prod[..., :-1]], dim=-1)   # prod_{i-1}
+    return mul_(inv_prefix, shifted).movedim(-1, axis)
 
 
 def batch_inv(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """Montgomery batch inversion along `axis`: one Fermat inversion per
-    lane plus prefix/suffix product scans (`jax_gl.batch_inv`)."""
-    x = a.movedim(axis, -1)
-    prod = gf_cumprod(x)
-    total_inv = inv(prod[..., -1:])
-    suffix = gf_cumprod(x.flip(-1)).flip(-1)
-    one = torch.ones_like(x[..., :1])
-    suffix_excl = torch.cat([suffix[..., 1:], one], dim=-1)
-    inv_prefix = mul(suffix_excl, total_inv)            # 1 / prod_i
-    shifted = torch.cat([one, prod[..., :-1]], dim=-1)  # prod_{i-1}
-    return mul(inv_prefix, shifted).movedim(-1, axis)
+    """Montgomery batch inversion (`_batch_inv`): on the card, the scans
+    are kernel K2 and the inversion and products kernel K1."""
+    return _batch_inv(a, axis, gf_cumprod, inv, mul)
+
+
+def batch_inv_plain(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return _batch_inv(a, axis, gf_cumprod_plain, inv_plain, mul_plain)
+
+
+def _tree_sum(x: torch.Tensor, axis: int, add_) -> torch.Tensor:
+    """Field sum along `axis` by a pairwise tree over halves of the axis
+    (element k meets element k + half); the axis is removed."""
+    axis %= x.dim()
+    while x.shape[axis] > 1:
+        n = x.shape[axis]
+        half = n // 2
+        s = add_(x.narrow(axis, 0, half), x.narrow(axis, half, half))
+        if n % 2:
+            s = torch.cat([s, x.narrow(axis, 2 * half, 1)], dim=axis)
+        x = s
+    return x.select(axis, 0)
 
 
 def gf_sum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """Field sum along `axis` (pairwise tree; the axis is removed)."""
-    x = x.movedim(axis, 0)
-    while x.shape[0] > 1:
-        n = x.shape[0]
-        half = n // 2
-        s = add(x[:half], x[half:2 * half])
-        if n % 2:
-            s = torch.cat([s, x[2 * half:]], dim=0)
-        x = s
-    return x[0]
+    """Field sum along `axis` (pairwise tree; the axis is removed). On the
+    card each level is one launch of K1 on the two halves as they lie."""
+    return _tree_sum(x, axis, add)
+
+
+def gf_sum_plain(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    return _tree_sum(x, axis, add_plain)
 
 
 def power_series(base: int, n: int, scale: int = 1,
@@ -283,14 +368,14 @@ def eval_polys_at(polys: torch.Tensor, z: int) -> np.ndarray:
 
 def eval_polys_multi(polys: torch.Tensor, zs) -> np.ndarray:
     """Evaluate coefficient rows (w, n) at every scalar in `zs`: returns
-    uint64 (k, w). Chunked over w so the (k, w_chunk, n) term array stays
-    near 2^25 elements."""
+    uint64 (k, w). One point at a time, chunked over w so the (w_chunk, n)
+    term array stays near 2^25 elements (a term array is a row chunk times
+    one power row: a broadcast K1 reads in place)."""
     w, n = polys.shape
-    k = len(zs)
     bases = from_u64(np.array([int(z) % P for z in zs], dtype=np.uint64),
                      polys.device)
     zps = power_series_rows(bases, n)                      # (k, n)
-    cw = max(1, (1 << 25) // max(n * k, 1))
-    parts = [gf_sum(mul(polys[None, i:i + cw, :], zps[:, None, :]), axis=-1)
-             for i in range(0, w, cw)]
-    return to_u64(torch.cat(parts, dim=1))
+    cw = max(1, (1 << 25) // max(n, 1))
+    rows = [torch.cat([gf_sum(mul(polys[i:i + cw], zp), axis=-1)
+                       for i in range(0, w, cw)]) for zp in zps]
+    return to_u64(torch.stack(rows))

@@ -1,0 +1,291 @@
+"""The field-algebra kernels on the card (`csrc/field.cu`).
+
+Four kernels stand where `aero_tpu` had XLA fuse its limb algebra
+(`aero_tpu/field/jax_gl.py`) under `jax.jit`; none has a Pallas
+counterpart:
+
+- K1 `gl_elementwise`: add, sub, mul mod p of two operands, or a^e for a
+  host exponent e (`jax_gl.add / sub / mul / pow_loop`);
+- K2 `gl_scan`: inclusive prefix sum or product along the last axis
+  (`lax.associative_scan` under `gf_cumsum`, `gf_cumprod`, `batch_inv`),
+  launched as `gl_scan_tiles` and, for a row longer than one tile,
+  `gl_scan_carry`;
+- K3 `gl_constraint_merge`: the random linear combination of one fragment's
+  constraint evaluations (the merge of `jax.jit(frag_fn)`,
+  `aero_tpu/prover/prover.py:407-429`);
+- K4 `gl_deep_combine`: one fragment's DEEP quotient from its LDE rows
+  (`_deep_core_jit`, `prover.py:556-589`).
+
+The wrappers here take CUDA tensors only; `field/gl.py` and
+`prover/prover.py` send a CPU tensor to the plain versions beside them
+(`add_plain`, `constraint_merge_plain`, ...). `on_cuda` decides and raises
+on what no path takes. Every launch goes on the current stream and adds one
+to `LAUNCHES` under its kernel's name; `gl_elementwise_copies` counts the
+operands K1 or K3 / K4 had to copy first (a broadcast or stride that the
+kernel's indexing does not cover), so a profile shows how often that fires.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import torch
+
+from .. import _build
+
+LAUNCHES = {"gl_elementwise": 0, "gl_scan": 0, "gl_constraint_merge": 0,
+            "gl_deep_combine": 0, "gl_elementwise_copies": 0}
+
+ADD, SUB, MUL, POW = 0, 1, 2, 3          # csrc/field.cu `Op`
+SCAN_TILE = 2048                         # csrc/field.cu kScanTile
+MODE_FULL, MODE_ONE, MODE_STRIDED = 0, 1, 2
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cuda(*operands) -> bool:
+    """False when no operand is a CUDA tensor (the plain version takes the
+    call); True when every operand is an int64 tensor on one CUDA device;
+    raises for anything else (mixed devices, another device type, another
+    dtype on the card, a Python number beside a CUDA tensor)."""
+    tensors = [t for t in operands if isinstance(t, torch.Tensor)]
+    for t in tensors:
+        if t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"field: unsupported device {t.device}")
+    if not any(t.is_cuda for t in tensors):
+        return False
+    dev = next(t.device for t in tensors if t.is_cuda)
+    for t in operands:
+        if not isinstance(t, torch.Tensor) or t.device != dev:
+            raise ValueError(f"field: every operand of a card call must be a "
+                             f"tensor on {dev}, got {_what(t)}")
+        if t.dtype != torch.int64:
+            raise ValueError(f"field: needs int64 tensors, got {t.dtype}")
+    return True
+
+
+def _what(t) -> str:
+    if isinstance(t, torch.Tensor):
+        return f"a {t.dtype} tensor on {t.device}"
+    return type(t).__name__
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------- K1
+
+def operand_plan(shape, stride, out_shape) -> Optional[tuple]:
+    """How K1 reads an operand of `shape` / `stride` (elements) broadcast to
+    `out_shape`: (mode, d1, s1, m0, s0), element i of the output at
+    (i // d1) * s1 + (i % m0) * s0 in MODE_STRIDED; None where the view
+    does not collapse to two dims (the wrapper then copies)."""
+    nd = len(out_shape)
+    shape = (1,) * (nd - len(shape)) + tuple(shape)
+    stride = (0,) * (nd - len(stride)) + tuple(stride)
+    dims: List[list] = []               # [size, stride], innermost first
+    for size, own, st in reversed(list(zip(out_shape, shape, stride))):
+        if size == 1:
+            continue
+        st = st if own == size else 0   # a broadcast dim reads one place
+        if dims and st == dims[-1][1] * dims[-1][0]:
+            dims[-1][0] *= size
+        else:
+            dims.append([size, st])
+    if not dims or (len(dims) == 1 and dims[0][1] == 0):
+        return (MODE_ONE, 1, 0, 1, 0)
+    if len(dims) == 1:
+        if dims[0][1] == 1:
+            return (MODE_FULL, 1, 0, 1, 0)
+        return (MODE_STRIDED, 1, dims[0][1], 1, 0)
+    if len(dims) == 2:
+        (n0, s0), (_, s1) = dims
+        return (MODE_STRIDED, n0, s1, n0, s0)
+    return None
+
+
+def _operand(t: torch.Tensor, out_shape, keep: list) -> tuple:
+    """(pointer, mode, d1, s1, m0, s0) of K1's operand `t`."""
+    plan = operand_plan(t.shape, t.stride(), out_shape)
+    if plan is None:
+        t = t.expand(out_shape).contiguous()
+        keep.append(t)
+        LAUNCHES["gl_elementwise_copies"] += 1
+        plan = (MODE_FULL, 1, 0, 1, 0)
+    return (t.data_ptr(),) + plan
+
+
+_UNUSED = (None, MODE_ONE, 1, 0, 1, 0)
+
+
+def elementwise(a: torch.Tensor, b: torch.Tensor, op: int) -> torch.Tensor:
+    """a op b mod p (op ADD, SUB or MUL), broadcast as torch broadcasts,
+    into a new contiguous tensor: one launch of K1."""
+    if op not in (ADD, SUB, MUL):
+        raise ValueError(f"elementwise: unknown op {op}")
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    if out.numel() == 0:
+        return out
+    keep: list = []
+    _build.launch("gl_elementwise", *_operand(a, shape, keep),
+                  *_operand(b, shape, keep), out.data_ptr(), out.numel(), op,
+                  0, _stream(a))
+    LAUNCHES["gl_elementwise"] += 1
+    return out
+
+
+def power(a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e mod p for a host exponent 0 <= e < 2^64 (a^0 is 1), square and
+    multiply in the kernel: one launch of K1."""
+    if not 0 <= e < 1 << 64:
+        raise ValueError(f"power: exponent {e} outside [0, 2^64)")
+    out = torch.empty(a.shape, dtype=torch.int64, device=a.device)
+    if out.numel() == 0:
+        return out
+    keep: list = []
+    _build.launch("gl_elementwise", *_operand(a, a.shape, keep), *_UNUSED,
+                  out.data_ptr(), out.numel(), POW, e, _stream(a))
+    LAUNCHES["gl_elementwise"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------- K2
+
+def _scan_rows(x: torch.Tensor, op: int) -> torch.Tensor:
+    """Inclusive scan of each row of a contiguous (rows, n) tensor: one
+    launch over tiles of SCAN_TILE, then, for rows past one tile, the scan
+    of the tile totals (the same function, a level up) and one launch that
+    carries them in."""
+    rows, n = x.shape
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    ntiles = -(-n // SCAN_TILE)
+    totals = torch.empty((rows, ntiles), dtype=torch.int64, device=x.device)
+    _build.launch("gl_scan_tiles", x.data_ptr(), out.data_ptr(),
+                  totals.data_ptr(), rows, n, ntiles, op, _stream(x))
+    LAUNCHES["gl_scan"] += 1
+    if ntiles > 1:
+        carries = _scan_rows(totals, op)
+        _build.launch("gl_scan_carry", out.data_ptr(), carries.data_ptr(),
+                      rows, n, ntiles, op, _stream(x))
+        LAUNCHES["gl_scan"] += 1
+    return out
+
+
+def scan(x: torch.Tensor, op: int) -> torch.Tensor:
+    """Inclusive prefix sum (op ADD) or product (op MUL) mod p along the
+    last axis of a tensor with at least one dim."""
+    if op not in (ADD, MUL) or x.dim() == 0:
+        raise ValueError(f"scan: op {op} on a {x.dim()}-d tensor")
+    if not x.is_contiguous():
+        x = x.contiguous()
+        LAUNCHES["gl_elementwise_copies"] += 1
+    n = x.shape[-1]
+    if n == 0:
+        return torch.empty_like(x)
+    return _scan_rows(x.view(-1, n), op).view(x.shape)
+
+
+# ---------------------------------------------------------------------- K3
+
+def _row(t: torch.Tensor, m: int, keep: list) -> int:
+    """The pointer of `t` as m contiguous elements, copied first if it is
+    a broadcast or a strided view."""
+    if tuple(t.shape) != (m,) or (m > 1 and t.stride(0) != 1):
+        t = t.expand(m).contiguous()
+        keep.append(t)
+        LAUNCHES["gl_elementwise_copies"] += 1
+    return t.data_ptr()
+
+
+def _dense(t: torch.Tensor, numel: int, what: str) -> int:
+    """The pointer of a contiguous tensor of `numel` elements."""
+    if t.numel() != numel or not t.is_contiguous():
+        raise ValueError(f"{what}: needs {numel} contiguous elements, got "
+                         f"{tuple(t.shape)}")
+    return t.data_ptr()
+
+
+def _pointer_table(ptrs: Sequence[int], device) -> torch.Tensor:
+    """The row pointers as a device int64 array, copied from pinned host
+    memory without waiting for the stream."""
+    host = torch.tensor(list(ptrs), dtype=torch.int64).pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def constraint_merge(t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt,
+                     dinv) -> torch.Tensor:
+    """K3 over one fragment of m points: every row argument is a tensor of m
+    elements (`t_evals`, `t_xp`: one a transition constraint; `cols`,
+    `b_xp`, `dinv`: one an assertion), `cc_t` (T, 2), `cc_b` (B, 2),
+    `bvals` (B,), `zt` (m,). Rows are read through a table of pointers, so
+    views and fresh tensors mix freely."""
+    T, B = len(t_evals), len(cols)
+    m = zt.shape[-1]
+    if len(t_xp) != T or len(b_xp) != B or len(dinv) != B:
+        raise ValueError("constraint_merge: the term lists differ in length")
+    on_cuda(zt, cc_t, cc_b, bvals, *t_evals, *t_xp, *cols, *b_xp, *dinv)
+    keep: list = []
+    ptrs = [_row(r, m, keep) for group in (t_evals, t_xp, cols, b_xp, dinv)
+            for r in group]
+    tab = _pointer_table(ptrs, zt.device) if ptrs else None
+    out = torch.empty(m, dtype=torch.int64, device=zt.device)
+    _build.launch("gl_constraint_merge",
+                  tab.data_ptr() if tab is not None else None,
+                  _dense(cc_t, 2 * T, "constraint_merge"),
+                  _dense(cc_b, 2 * B, "constraint_merge"),
+                  _dense(bvals, B, "constraint_merge"),
+                  _row(zt, m, keep), out.data_ptr(), T, B, m, _stream(zt))
+    LAUNCHES["gl_constraint_merge"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------- K4
+
+def _matrix(t: Optional[torch.Tensor], m: int, keep: list) -> tuple:
+    """(pointer, row stride, rows) of a (w, m) view whose rows are
+    contiguous; other views are copied first."""
+    if t is None:
+        return None, 0, 0
+    if t.dim() != 2 or t.shape[1] != m:
+        raise ValueError(f"deep_combine: needs (w, {m}) rows, got "
+                         f"{tuple(t.shape)}")
+    if t.stride(1) != 1 and m > 1:
+        t = t.contiguous()
+        keep.append(t)
+        LAUNCHES["gl_elementwise_copies"] += 1
+    return t.data_ptr(), t.stride(0), t.shape[0]
+
+
+def deep_combine(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt, ood,
+                 a_vec, b_vec, c_vec, dinv, lam, mu) -> torch.Tensor:
+    """K4 over one fragment of m points: the LDE rows (w, m) are read at
+    their own row stride (fragments of the whole domain, no copy); `dinv`
+    (3, m) are the inverses of x - z, x - zg, x - z^ce; `lam`, `mu` single
+    elements."""
+    m = x_dom.shape[-1]
+    on_cuda(main_lde, constraint_lde, x_dom, cur, nxt, ood, a_vec, b_vec,
+            c_vec, dinv, lam, mu, *([aux_lde] if aux_lde is not None else []))
+    keep: list = []
+    mp, mld, wm = _matrix(main_lde, m, keep)
+    ap, ald, wa = _matrix(aux_lde, m, keep)
+    cp, cld, wc = _matrix(constraint_lde, m, keep)
+    dp, dld, wd = _matrix(dinv, m, keep)
+    if wd != 3 or lam.numel() != 1 or mu.numel() != 1:
+        raise ValueError("deep_combine: needs three divisor rows and "
+                         "single-element lam, mu")
+    vecs = [_dense(v, n, "deep_combine")
+            for v, n in ((cur, wm + wa), (nxt, wm + wa), (ood, wc),
+                         (a_vec, wm + wa), (b_vec, wm + wa), (c_vec, wc))]
+    out = torch.empty(m, dtype=torch.int64, device=x_dom.device)
+    _build.launch("gl_deep_combine", mp, mld, wm, ap, ald, wa, cp, cld, wc,
+                  *vecs, dp, dld, _row(x_dom, m, keep), lam.data_ptr(),
+                  mu.data_ptr(), out.data_ptr(), m, _stream(x_dom))
+    LAUNCHES["gl_deep_combine"] += 1
+    return out

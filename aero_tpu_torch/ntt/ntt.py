@@ -27,14 +27,12 @@ the card; there is no switch that routes `ntt` / `intt` through them.
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from ..spec import field as F
 
-from ..field import add, from_u64, mul, scalar, sub
+from ..field import from_u64, mul, power_series, scalar
+from ..field.gl import add_plain, mul_plain, sub_plain
 from . import tables
 from .ntt_cuda import ntt_cuda
 
@@ -53,10 +51,11 @@ def ntt_plain(x: torch.Tensor, invert: bool = False) -> torch.Tensor:
         half = 1 << (s - 1)
         xr = x.reshape(B, n >> s, 2, half)
         u, v = xr[:, :, 0], xr[:, :, 1]
-        t = mul(v, tw[half - 1:2 * half - 1])
-        x = torch.stack([add(u, t), sub(u, t)], dim=2).reshape(B, n)
+        t = mul_plain(v, tw[half - 1:2 * half - 1])
+        x = torch.stack([add_plain(u, t), sub_plain(u, t)],
+                        dim=2).reshape(B, n)
     if invert:
-        x = mul(x, scalar(F.inv(n), x.device))
+        x = mul_plain(x, scalar(F.inv(n), x.device))
     return x.reshape(shape)
 
 
@@ -76,21 +75,18 @@ def intt(evals: torch.Tensor) -> torch.Tensor:
     return _transform(evals, True)
 
 
-@functools.lru_cache(maxsize=32)
-def _offset_powers(n: int, offset: int) -> np.ndarray:
-    return tables.np_power_series(offset, n)
-
-
 def coset_pad(coeffs: torch.Tensor, log_blowup: int,
               offset: int = F.DOMAIN_OFFSET) -> torch.Tensor:
     """c_i * offset^i, zero-padded to n << log_blowup: the input of the
-    size-m transform that evaluates over the coset offset*<w_m>."""
+    size-m transform that evaluates over the coset offset*<w_m>. The
+    offset powers are made where the coefficients lie, by log-doubling
+    (`power_series`), so nothing crosses from the host."""
     n = coeffs.shape[-1]
-    sc = from_u64(_offset_powers(n, offset), coeffs.device)
-    scaled = mul(coeffs, sc)
-    pad = torch.zeros(coeffs.shape[:-1] + ((n << log_blowup) - n,),
+    sc = power_series(offset, n, device=coeffs.device)
+    out = torch.zeros(coeffs.shape[:-1] + (n << log_blowup,),
                       dtype=torch.int64, device=coeffs.device)
-    return torch.cat([scaled, pad], dim=-1)
+    out[..., :n] = mul(coeffs, sc)
+    return out
 
 
 def lde(coeffs: torch.Tensor, log_blowup: int,

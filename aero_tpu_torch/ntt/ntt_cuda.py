@@ -42,7 +42,8 @@ import threading
 import torch
 
 from .. import _build
-from ..field import add, from_u64, gf_full, mul, power_series, square, sub
+from ..field import from_u64, gf_full, mul, power_series, square
+from ..field.gl import add_plain, mul_plain, sub_plain
 from ..spec import field as F
 from . import tables
 
@@ -70,10 +71,11 @@ def colntt_plain(x: torch.Tensor, tw: torch.Tensor,
         half = 1 << (s - 1)
         xr = x.reshape(B, L >> s, 2, half, C)
         u, v = xr[:, :, 0], xr[:, :, 1]
-        t = mul(v, tw[half - 1:2 * half - 1].reshape(1, 1, half, 1))
-        x = torch.stack([add(u, t), sub(u, t)], dim=2).reshape(B, L, C)
+        t = mul_plain(v, tw[half - 1:2 * half - 1].reshape(1, 1, half, 1))
+        x = torch.stack([add_plain(u, t), sub_plain(u, t)],
+                        dim=2).reshape(B, L, C)
     if cross is not None:
-        x = mul(x, cross)
+        x = mul_plain(x, cross)
     return x
 
 

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..field import from_u64, scalar
+from ..field import from_u64, gl_cuda, scalar
 from ..hash import blake2s_cuda
 from ..merkle import commit_columns
 from ..ntt import intt, lde, ntt_cuda
@@ -223,12 +223,14 @@ def _pipeline_roots(air, trace: torch.Tensor, aux: torch.Tensor,
 
 
 def _launches() -> dict:
-    return {**ntt_cuda.LAUNCHES, **blake2s_cuda.LAUNCHES}
+    return {**ntt_cuda.LAUNCHES, **blake2s_cuda.LAUNCHES,
+            **gl_cuda.LAUNCHES}
 
 
 def _reset_launches() -> None:
     ntt_cuda.reset_launches()
     blake2s_cuda.reset_launches()
+    gl_cuda.reset_launches()
 
 
 def single_device_dryrun(trace_steps: int = 64, device=None,

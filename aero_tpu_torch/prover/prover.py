@@ -33,7 +33,7 @@ from __future__ import annotations
 import os
 import pickle
 from dataclasses import dataclass, field as dfield
-from typing import Any, Dict, List, Optional
+from typing import Any, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,8 +46,10 @@ from ..spec.proof import (FriProof, FriProofLayer, OodFrame, Queries,
 from ..utils import span
 
 from ..air.air import Air
-from ..field import (add, batch_inv, eval_polys_multi, from_u64, gf_sum, mul,
+from ..field import (batch_inv, eval_polys_multi, from_u64, gl_cuda, mul,
                      pow_loop, power_series, scalar, sub, to_u64)
+from ..field.gl import (add_plain, batch_inv_plain, gf_sum_plain, mul_plain,
+                        sub_plain)
 from ..hash.blake2s_cuda import grind_pow
 from ..merkle import ResidentMerkleTree, commit_columns
 from ..ntt import intt, lde
@@ -109,6 +111,47 @@ def _ceval_static(air: Air, device) -> tuple:
     return cache[key]
 
 
+class MergeInputs(NamedTuple):
+    """What the merge of one fragment of m points reads: one row of m
+    elements for each term, and the coefficients. Transition term i:
+    `t_evals[i]`, `t_xp[i]` (x^adj_i), `cc_t[i]`; assertion j: `cols[j]`,
+    `b_xp[j]`, `cc_b[j]`, `bvals[j]`, `dinv[j]` (1 / (x - g^step_j))."""
+    t_evals: Sequence[torch.Tensor]
+    t_xp: Sequence[torch.Tensor]
+    cc_t: torch.Tensor              # (T, 2)
+    cols: Sequence[torch.Tensor]
+    b_xp: Sequence[torch.Tensor]
+    cc_b: torch.Tensor              # (B, 2)
+    bvals: torch.Tensor             # (B,)
+    zt: torch.Tensor                # (m,) 1 / the transition divisor
+    dinv: Sequence[torch.Tensor]
+
+
+def constraint_merge_plain(t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt,
+                           dinv) -> torch.Tensor:
+    """The merge in plain torch ops: sum_i (cc_t[i,0] + x^adj_i cc_t[i,1])
+    ev_i zt + sum_j (cc_b[j,0] + x^adj_j cc_b[j,1]) (col_j - b_j) dinv_j."""
+    merged = torch.zeros_like(zt)
+    for i, (ev, xp) in enumerate(zip(t_evals, t_xp)):
+        k = add_plain(cc_t[i, 0], mul_plain(xp, cc_t[i, 1]))
+        merged = add_plain(merged, mul_plain(mul_plain(k, ev), zt))
+    for j, (col, xp, d) in enumerate(zip(cols, b_xp, dinv)):
+        ev = sub_plain(col, bvals[j])
+        k = add_plain(cc_b[j, 0], mul_plain(xp, cc_b[j, 1]))
+        merged = add_plain(merged, mul_plain(mul_plain(k, ev), d))
+    return merged
+
+
+def constraint_merge(t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt,
+                     dinv) -> torch.Tensor:
+    """One fragment's merge: kernel K3 (`gl_cuda.constraint_merge`) on the
+    card, `constraint_merge_plain` on the CPU."""
+    args = (t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt, dinv)
+    if gl_cuda.on_cuda(zt):
+        return gl_cuda.constraint_merge(*args)
+    return constraint_merge_plain(*args)
+
+
 class ConstraintMerger:
     """The random linear combination of all constraint evaluations over a
     range of the LDE domain, evaluated fragment by fragment: one fragment's
@@ -135,30 +178,32 @@ class ConstraintMerger:
         self.bvals = _vec([a.value for a in assertions], device)
         self.rands = [int(r) % F.P for r in aux_rand]
 
-    def fragment(self, main_cur, main_nxt, aux_cur, aux_nxt,
-                 a0: int) -> torch.Tensor:
-        """The merged evaluations of the `m_frag` points from position a0
-        of the range; cur and nxt are (width, m_frag) frames."""
+    def merge_inputs(self, main_cur, main_nxt, aux_cur, aux_nxt,
+                     a0: int) -> MergeInputs:
+        """The constraint evaluations and the rows the merge reads for the
+        `m_frag` points from position a0 of the range; cur and nxt are
+        (width, m_frag) frames."""
         m_frag = main_cur.shape[-1]
         sl = slice(a0, a0 + m_frag)
         t_evals = self.air.evaluate_transitions(main_cur, main_nxt, aux_cur,
                                                 aux_nxt, self.rands)
         x_frag = self.x_dom[sl]
-        xp: Dict[int, torch.Tensor] = {}
-        for adj in set(self.t_adjust) | set(self.b_adjust):
-            xp[adj] = pow_loop(x_frag, adj)
-        merged = torch.zeros(m_frag, dtype=torch.int64, device=x_frag.device)
-        zt_f = self.zt_inv[sl]
-        for i, (ev, adj) in enumerate(zip(t_evals, self.t_adjust)):
-            k = add(self.cc_t[i, 0], mul(xp[adj], self.cc_t[i, 1]))
-            merged = add(merged, mul(mul(k, ev), zt_f))
-        for j, ((is_main, c, prow), adj) in enumerate(zip(self.asrt_route,
-                                                          self.b_adjust)):
-            col = main_cur[c] if is_main else aux_cur[c]
-            ev = sub(col, self.bvals[j])
-            k = add(self.cc_b[j, 0], mul(xp[adj], self.cc_b[j, 1]))
-            merged = add(merged, mul(mul(k, ev), self.denom_inv[prow, sl]))
-        return merged
+        xp = {adj: pow_loop(x_frag, adj)
+              for adj in sorted(set(self.t_adjust) | set(self.b_adjust))}
+        return MergeInputs(
+            t_evals, [xp[adj] for adj in self.t_adjust], self.cc_t,
+            [main_cur[c] if is_main else aux_cur[c]
+             for is_main, c, _ in self.asrt_route],
+            [xp[adj] for adj in self.b_adjust], self.cc_b, self.bvals,
+            self.zt_inv[sl],
+            [self.denom_inv[prow, sl] for _, _, prow in self.asrt_route])
+
+    def fragment(self, main_cur, main_nxt, aux_cur, aux_nxt,
+                 a0: int) -> torch.Tensor:
+        """The merged evaluations of the `m_frag` points from position a0
+        of the range; cur and nxt are (width, m_frag) frames."""
+        return constraint_merge(*self.merge_inputs(main_cur, main_nxt,
+                                                   aux_cur, aux_nxt, a0))
 
 
 # ------------------------------------------------------------- prover state
@@ -321,24 +366,61 @@ def stage_ood_frames(air: Air, st: ProverState) -> None:
     st.main_polys = st.aux_polys = st.col_coeffs = None
 
 
-def _deep_core(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt, ood,
-               a_vec, b_vec, c_vec, z, zg, zm, lam, mu) -> torch.Tensor:
-    """DEEP composition of one domain fragment as weighted column sums."""
-    dinv = batch_inv(torch.stack([sub(x_dom, z), sub(x_dom, zg),
-                                  sub(x_dom, zm)]), axis=-1)
-
+def deep_combine_plain(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt,
+                       ood, a_vec, b_vec, c_vec, dinv, lam, mu
+                       ) -> torch.Tensor:
+    """The DEEP quotient of one fragment in plain torch ops, given the
+    inverses `dinv` (3, m) of x - z, x - zg, x - z^ce: weighted column
+    sums of the trace rows against cur and nxt and of the composition rows
+    against the OOD values, times (lam + x mu)."""
     def wsum(lde_, vals, weights):
-        return gf_sum(mul(sub(lde_, vals[:, None]), weights[:, None]), axis=0)
+        return gf_sum_plain(mul_plain(sub_plain(lde_, vals[:, None]),
+                                      weights[:, None]), axis=0)
 
     w_main = main_lde.shape[0]
     num_cur = wsum(main_lde, cur[:w_main], a_vec[:w_main])
     num_nxt = wsum(main_lde, nxt[:w_main], b_vec[:w_main])
     if aux_lde is not None:
-        num_cur = add(num_cur, wsum(aux_lde, cur[w_main:], a_vec[w_main:]))
-        num_nxt = add(num_nxt, wsum(aux_lde, nxt[w_main:], b_vec[w_main:]))
-    deep = add(mul(num_cur, dinv[0]), mul(num_nxt, dinv[1]))
-    deep = add(deep, mul(wsum(constraint_lde, ood, c_vec), dinv[2]))
-    return mul(deep, add(lam, mul(x_dom, mu)))
+        num_cur = add_plain(num_cur, wsum(aux_lde, cur[w_main:],
+                                          a_vec[w_main:]))
+        num_nxt = add_plain(num_nxt, wsum(aux_lde, nxt[w_main:],
+                                          b_vec[w_main:]))
+    deep = add_plain(mul_plain(num_cur, dinv[0]), mul_plain(num_nxt, dinv[1]))
+    deep = add_plain(deep, mul_plain(wsum(constraint_lde, ood, c_vec),
+                                     dinv[2]))
+    return mul_plain(deep, add_plain(lam, mul_plain(x_dom, mu)))
+
+
+def deep_combine(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt, ood,
+                 a_vec, b_vec, c_vec, dinv, lam, mu) -> torch.Tensor:
+    """Kernel K4 (`gl_cuda.deep_combine`) on the card,
+    `deep_combine_plain` on the CPU."""
+    args = (main_lde, aux_lde, constraint_lde, x_dom, cur, nxt, ood, a_vec,
+            b_vec, c_vec, dinv, lam, mu)
+    if gl_cuda.on_cuda(x_dom):
+        return gl_cuda.deep_combine(*args)
+    return deep_combine_plain(*args)
+
+
+def _deep_core(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt, ood,
+               a_vec, b_vec, c_vec, z, zg, zm, lam, mu) -> torch.Tensor:
+    """DEEP composition of one domain fragment as weighted column sums: the
+    divisors' inverses by `batch_inv` (kernels K2 and K1 on the card), then
+    `deep_combine` (K4)."""
+    dinv = batch_inv(torch.stack([sub(x_dom, z), sub(x_dom, zg),
+                                  sub(x_dom, zm)]), axis=-1)
+    return deep_combine(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt,
+                        ood, a_vec, b_vec, c_vec, dinv, lam, mu)
+
+
+def _deep_core_plain(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt, ood,
+                     a_vec, b_vec, c_vec, z, zg, zm, lam, mu) -> torch.Tensor:
+    """`_deep_core` in plain torch ops alone, on any device."""
+    dinv = batch_inv_plain(torch.stack([sub_plain(x_dom, z),
+                                        sub_plain(x_dom, zg),
+                                        sub_plain(x_dom, zm)]), axis=-1)
+    return deep_combine_plain(main_lde, aux_lde, constraint_lde, x_dom, cur,
+                              nxt, ood, a_vec, b_vec, c_vec, dinv, lam, mu)
 
 
 def stage_deep_composition(air: Air, st: ProverState) -> None:

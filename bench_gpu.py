@@ -288,9 +288,10 @@ class Prepared(NamedTuple):
 
 
 def _launch_modules():
+    from aero_tpu_torch.field import gl_cuda
     from aero_tpu_torch.hash import blake2s_cuda
     from aero_tpu_torch.ntt import ntt_cuda
-    return ntt_cuda, blake2s_cuda
+    return ntt_cuda, blake2s_cuda, gl_cuda
 
 
 def _prepare(src, inputs, min_rows, grind, device) -> Prepared:

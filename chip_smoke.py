@@ -108,6 +108,22 @@ NTT_SRC = "aero_tpu_torch/csrc/ntt.cu"
 B2S_SRC = "aero_tpu_torch/csrc/blake2s.cu"
 NTT_TPU = "aero_tpu/ntt/ntt_pallas.py:131"
 B2S_TPU = "aero_tpu/hash/blake2s_pallas.py:36"
+FIELD_SRC = "aero_tpu_torch/csrc/field.cu"
+# the field kernels have no Pallas counterpart: where each stands in aero_tpu
+FIELD_REPLACES = {
+    "gl_elementwise": ("aero_tpu/field/jax_gl.py:210",
+                       "no Pallas kernel: XLA's fusion of jax_gl.add / sub "
+                       "/ mul / pow_loop (jax_gl.py:187-304) under jax.jit"),
+    "gl_scan": ("aero_tpu/field/jax_gl.py:312",
+                "no Pallas kernel: lax.associative_scan(mul / add) under "
+                "jax.jit (jax_gl.py:312, :343, :490, :496)"),
+    "gl_constraint_merge": ("aero_tpu/prover/prover.py:407",
+                            "no Pallas kernel: the merge of jax.jit(frag_fn)"
+                            " (prover.py:407-429)"),
+    "gl_deep_combine": ("aero_tpu/prover/prover.py:556",
+                        "no Pallas kernel: _deep_core_jit "
+                        "(prover.py:556-589)"),
+}
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SMS = 132                      # streaming multiprocessors of an H100 SXM
 LOG_LDE = 23                   # LDE domain of the 2^20-row proof
@@ -168,12 +184,18 @@ def device_felts(shape, gen, dev) -> torch.Tensor:
     return hi.bitwise_left_shift_(32).bitwise_or_(lo)
 
 
-def bound(nbytes: int, units: int, per_unit, clock_hz: float):
+def bound(nbytes: int, terms, clock_hz: float):
     """(least milliseconds the card could take, what sets it): the bytes
-    over the memory rate, or `units` of work of `per_unit` instructions
-    each over what 132 SMs take in a clock (`_sass.Counts.sm_clocks`)."""
+    over the memory rate, or the instructions of `terms`, (units of work,
+    instruction counts a unit) pairs, over what 132 SMs take in a clock:
+    the fuller of the two 64-lane pipes or the 128 scheduler slots
+    (`_sass.Counts.sm_clocks`)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = units * per_unit.sm_clocks() / (SMS * clock_hz) * 1e3
+    alu = sum(u * c.alu for u, c in terms)
+    fma = sum(u * c.fma for u, c in terms)
+    total = sum(u * c.total for u, c in terms)
+    clocks = max(alu / 64, fma / 64, total / 128)
+    by_ops = clocks / (SMS * clock_hz) * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
 
@@ -181,10 +203,13 @@ def bound(nbytes: int, units: int, per_unit, clock_hz: float):
 def record(kernels, name, shape, err, ms, plain_ms, nbytes, units, per_unit,
            clock_hz) -> None:
     """Log the bound of the call just timed; with a `name`, keep the row
-    for the `kernels` line."""
-    b_ms, b_by = bound(nbytes, units, per_unit, clock_hz)
-    log(f"          bound {b_ms:.3f} ms by {b_by} ({nbytes} B, {units} x "
-        f"{per_unit.total} instructions): {100 * b_ms / ms:.1f} % of the "
+    for the `kernels` line. `units` of `per_unit` instructions each, or,
+    with `per_unit` None, a list of (units, per_unit) terms."""
+    terms = units if per_unit is None else [(units, per_unit)]
+    b_ms, b_by = bound(nbytes, terms, clock_hz)
+    instructions = sum(u * c.total for u, c in terms)
+    log(f"          bound {b_ms:.4f} ms by {b_by} ({nbytes} B, "
+        f"{instructions} instructions): {100 * b_ms / ms:.1f} % of the "
         f"bound reached")
     if name is not None:
         kernels[name].update(shape=shape, max_abs_err=err, ms=ms,
@@ -212,13 +237,81 @@ def read_sass_counts(lib) -> dict:
     counts = {"butterfly": _sass.butterfly_counts(
                   _sass.find_function(fns, "colntt_kernel")),
               "compress_merge": merge, "compress_leaf": leaf,
-              "compress_grind": grind}
+              "compress_grind": grind, **field_sass_counts(fns)}
     for k, c in counts.items():
-        log(f"[set-up] SASS per {k}: {c.alu} ALU, {c.fma} multiply-add, "
-            f"{c.uniform} uniform, {c.memory} memory, {c.control} control "
-            f"instructions; at least {c.sm_clocks():.2f} SM clocks a thread")
+        log(f"[set-up] SASS per {k}: {c.alu:g} ALU, {c.fma:g} multiply-add,"
+            f" {c.uniform:g} uniform, {c.memory:g} memory, {c.control:g} "
+            f"control instructions; at least {c.sm_clocks():.2f} SM clocks a"
+            " thread")
         check(c.alu > 0 and c.fma > 0, f"SASS counts of {k} > 0")
     return counts
+
+
+def inner_loops(body) -> list:
+    """The loops of a kernel that hold no other loop, in address order;
+    the branch to itself that ends every kernel's code is no loop."""
+    from aero_tpu_torch import _sass
+    lps = [lp for lp in _sass.loops(body) if len(lp) > 1]
+    inner = [lp for lp in lps
+             if not any(o is not lp and o[0].addr >= lp[0].addr
+                        and o[-1].addr <= lp[-1].addr and len(o) < len(lp)
+                        for o in lps)]
+    return sorted(inner, key=lambda lp: lp[0].addr)
+
+
+def field_sass_counts(fns) -> dict:
+    """Instructions a unit of work of the field kernels (csrc/field.cu):
+    an element of K1's multiply of two full operands (its storing loop,
+    which the compiler may unroll, over the stores in it: one an element)
+    and a bit of its exponent loop (the loop with no store); a thread of
+    each scan kernel (the whole kernel: its loops are unrolled); a term of
+    K3's two loops (transitions, assertions) and a row of K4's three (main,
+    aux, composition), one term a trip. Where a kernel's loops are not as
+    described, its whole code stands for each unit, an overcount, and the
+    line says so."""
+    from aero_tpu_torch import _sass
+
+    def stores(lp):
+        return sum(i.op == "STG" for i in lp)
+
+    def scaled(c, k):
+        return _sass.Counts(c.alu / k, c.fma / k, c.uniform / k,
+                            c.memory / k, c.control / k, c.shared_stores)
+
+    def pick(name, want, how):
+        body = _sass.find_function(fns, name)
+        got = how(inner_loops(body))
+        if got is None or len(got) != want:
+            log(f"[set-up] SASS of {name}: its loops are not as expected; "
+                "the whole kernel's code stands for each unit (an overcount)")
+            return [_sass.count_instructions(body)] * want
+        return got
+
+    def storing(lps):
+        lps = [lp for lp in lps if stores(lp)]
+        if not lps:
+            return None
+        lp = max(lps, key=stores)
+        return [scaled(_sass.count_instructions(lp), stores(lp))]
+
+    def bit_loop(lps):
+        lps = [lp for lp in lps if not stores(lp)]
+        return [_sass.count_instructions(min(lps, key=len))] if lps else None
+
+    def each(lps):
+        return [_sass.count_instructions(lp) for lp in lps]
+
+    k3 = pick("constraint_merge_kernel", 2, each)
+    k4 = pick("deep_combine_kernel", 3, each)
+    return {
+        "k1_mul": pick("elementwise_kernelILi2ELi0ELi0E", 1, storing)[0],
+        "k1_pow_bit": pick("elementwise_kernelILi3ELi0ELi1E", 1, bit_loop)[0],
+        "k2_tiles": _sass.count_instructions(
+            _sass.find_function(fns, "scan_tiles_kernelILi2E")),
+        "k2_carry": _sass.count_instructions(
+            _sass.find_function(fns, "scan_carry_kernelILi2E")),
+        "k3_transition": k3[0], "k3_assertion": k3[1],
+        "k4_main": k4[0], "k4_aux": k4[1], "k4_comp": k4[2]}
 
 
 def phase_blake2s(dev, rng, kernels, sass, clock_hz) -> None:
@@ -463,17 +556,265 @@ def phase_ntt(dev, rng, gen, kernels, sass, clock_hz) -> None:
            x.numel() * LOG_LDE // 2, sass["butterfly"], clock_hz)
 
 
+def queued_ms(dev):
+    """A timer for short kernels: CUDA-event milliseconds a call, with the
+    calls enqueued behind about 6 ms of device work, so the host's launch
+    rate does not count (`cuda_ms_queued`)."""
+    ballast = torch.zeros(1 << 27, dtype=torch.int64, device=dev)
+
+    def busy():
+        for _ in range(8):
+            ballast.add_(1)
+
+    return lambda fn, iters=20: cuda_ms_queued(fn, iters, busy)
+
+
+def scan_terms(rows: int, n: int, sass) -> list:
+    """(threads, instructions a thread) of every launch K2 makes for a
+    (rows, n) scan: tiles of 2048 and, a level up, their totals."""
+    from aero_tpu_torch.field.gl_cuda import SCAN_TILE
+    terms = []
+    while True:
+        ntiles = -(-n // SCAN_TILE)
+        terms.append((rows * ntiles * 256, sass["k2_tiles"]))
+        if ntiles == 1:
+            return terms
+        terms.append((rows * (ntiles - 1) * 256, sass["k2_carry"]))
+        n = ntiles
+
+
+def field_k1(dev, gen, log_n: int, timer, sass, clock_hz, kernels=None):
+    """K1 against its plain versions at 2^log_n elements: add, sub, mul of
+    two full operands and with a 0-d operand on either side, and the Fermat
+    inverse (pow). With `kernels`, the multiply's row and the host time a
+    launch."""
+    from aero_tpu_torch.field import gl
+    n = 1 << log_n
+    a, b = device_felts((n,), gen, dev), device_felts((n,), gen, dev)
+    s0 = device_felts((), gen, dev)
+    err = 0
+    for op in ("add", "sub", "mul"):
+        k, p = getattr(gl, op), getattr(gl, op + "_plain")
+        for x, y in ((a, b), (a, s0), (s0, a)):
+            err = max(err, max_abs_err(k(x, y), p(x, y)))
+    err = max(err, max_abs_err(gl.inv(a), gl.inv_plain(a)))
+    check(err == 0, f"K1 at 2^{log_n}: kernel == plain")
+    if kernels is None:
+        return err
+    ms = timer(lambda: gl.mul(a, b))
+    pms = cuda_ms(lambda: gl.mul_plain(a, b), iters=3)
+    log(f"[phase 2b] K1 gl_elementwise mul 2^{log_n}: kernel {ms:.4f} ms, "
+        f"plain {pms:.4f} ms, max_abs_err {err} (add, sub, mul, 0-d "
+        "operands, inv)")
+    record(kernels, "gl_elementwise", f"mul 2^{log_n}", err, ms, pms,
+           3 * n * 8, n, sass["k1_mul"], clock_hz)
+    ms = timer(lambda: gl.mul(a, s0))
+    pms = cuda_ms(lambda: gl.mul_plain(a, s0), iters=3)
+    log(f"[phase 2b] K1 mul 2^{log_n} by a 0-d operand: kernel {ms:.4f} ms,"
+        f" plain {pms:.4f} ms")
+    record({}, None, "", err, ms, pms, 2 * n * 8 + 8, n, sass["k1_mul"],
+           clock_hz)
+    bits = (gl.P - 2).bit_length()
+    ms = timer(lambda: gl.inv(a), iters=5)
+    pms = cuda_ms(lambda: gl.inv_plain(a), iters=1)
+    log(f"[phase 2b] K1 pow (inv, e = p - 2, {bits} bits) 2^{log_n}: kernel "
+        f"{ms:.4f} ms, plain {pms:.4f} ms")
+    record({}, None, "", err, ms, pms, 2 * n * 8, n * bits,
+           sass["k1_pow_bit"], clock_hz)
+    small = device_felts((1024,), gen, dev)
+    gl.mul(small, small)
+    torch.cuda.synchronize()
+    calls = 2000
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        gl.mul(small, small)
+    host_ms_call = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    kernels["gl_elementwise"]["host_ms"] = host_ms_call
+    log(f"[phase 2b] K1 host time a launch (wrapper, checks, ctypes, no "
+        f"synchronize; 2^10 elements, {calls} calls): {host_ms_call * 1e3:.2f}"
+        " us")
+    return err
+
+
+def field_k2(dev, gen, shape, zero_at, timer, sass, clock_hz, kernels=None):
+    """K2 (and batch_inv over it) against the plain versions on `shape`,
+    with a zero at `zero_at`: that row of batch_inv must be all zero."""
+    from aero_tpu_torch.field import gl
+    x = device_felts(shape, gen, dev)
+    x[x == 0] = 1
+    x[zero_at] = 0
+    err = 0
+    for fn in ("gf_cumprod", "gf_cumsum", "batch_inv"):
+        err = max(err, max_abs_err(getattr(gl, fn)(x),
+                                   getattr(gl, fn + "_plain")(x)))
+    inv = gl.batch_inv(x)
+    check(not bool(inv[zero_at[0]].any()), f"batch_inv {shape}: the row "
+          "with a zero is all zero")
+    check(err == 0, f"K2 {shape}: kernel == plain")
+    if kernels is None:
+        return err
+    rows, n = shape
+    ms = timer(lambda: gl.gf_cumprod(x))
+    pms = cuda_ms(lambda: gl.gf_cumprod_plain(x), iters=1)
+    bms = timer(lambda: gl.batch_inv(x), iters=5)
+    bpms = cuda_ms(lambda: gl.batch_inv_plain(x), iters=1)
+    log(f"[phase 2b] K2 gl_scan {rows} x {n} (a zero in row {zero_at[0]}): "
+        f"gf_cumprod kernel {ms:.4f} ms, plain {pms:.4f} ms; batch_inv "
+        f"{bms:.4f} ms, plain {bpms:.4f} ms; max_abs_err {err}")
+    record(kernels if shape == (4, (1 << 20) - 1) else {},
+           "gl_scan" if shape == (4, (1 << 20) - 1) else None,
+           f"gf_cumprod {rows} x {n}", err, ms, pms, 2 * rows * n * 8,
+           scan_terms(rows, n, sass), None, clock_hz)
+    return err
+
+
+def synthetic_merge(dev, gen, m: int):
+    """MergeInputs of MidenAir's shape (112 transition terms, 46
+    assertions over 25 columns, 9 distinct x^adj rows, 2 divisor rows)."""
+    from aero_tpu_torch.prover import prover as PR
+    frame = device_felts((81, m), gen, dev)
+    xp = device_felts((9, m), gen, dev)
+    dinv = device_felts((2, m), gen, dev)
+    return PR.MergeInputs(
+        [device_felts((m,), gen, dev) for _ in range(112)],
+        [xp[i % 8] for i in range(112)], device_felts((112, 2), gen, dev),
+        [frame[j % 25] for j in range(46)], [xp[8]] * 46,
+        device_felts((46, 2), gen, dev), device_felts((46,), gen, dev),
+        device_felts((m,), gen, dev), [dinv[j % 2] for j in range(46)])
+
+
+def field_k3(inputs, timer, sass, clock_hz, kernels=None, what=""):
+    """K3 against its plain version on one fragment's merge inputs."""
+    from aero_tpu_torch.prover import prover as PR
+    err = max_abs_err(PR.constraint_merge(*inputs),
+                      PR.constraint_merge_plain(*inputs))
+    m = inputs.zt.shape[-1]
+    check(err == 0, f"K3 {what}: kernel == plain")
+    if kernels is None:
+        return err
+    T, B = len(inputs.t_evals), len(inputs.cols)
+    rows = {r.data_ptr() for g in (inputs.t_evals, inputs.t_xp, inputs.cols,
+                                   inputs.b_xp, inputs.dinv) for r in g}
+    rows.add(inputs.zt.data_ptr())
+    ms = timer(lambda: PR.gl_cuda.constraint_merge(*inputs), iters=10)
+    pms = cuda_ms(lambda: PR.constraint_merge_plain(*inputs), iters=1)
+    log(f"[phase 2b] K3 gl_constraint_merge {what}: {T} transition terms, "
+        f"{B} assertions, {len(rows)} distinct rows read: kernel {ms:.4f} "
+        f"ms, plain {pms:.4f} ms, max_abs_err {err}")
+    # rows read once and the output written once; the pointer table and
+    # the coefficients
+    record(kernels, "gl_constraint_merge", f"{what}: {len(rows)} rows of "
+           f"{m}", err, ms, pms, (len(rows) + 1) * m * 8 + (4 * T + 6 * B) * 8,
+           [(m * T, sass["k3_transition"]), (m * B, sass["k3_assertion"])],
+           None, clock_hz)
+    return err
+
+
+def field_k4(dev, gen, widths, log_m: int, log_ld: int, timer, sass,
+             clock_hz, kernels=None):
+    """K4 (and `_deep_core` around it) against the plain versions: a
+    fragment of 2^log_m points of main / aux / composition LDEs whose rows
+    are 2^log_ld long, read in place."""
+    from aero_tpu_torch.field import gl
+    from aero_tpu_torch.prover import prover as PR
+    wm, wa, wc = widths
+    m, ld = 1 << log_m, 1 << log_ld
+    a0 = ld - m if ld > m else 0
+    sl = slice(a0, a0 + m)
+    lde_m = device_felts((wm, ld), gen, dev)
+    lde_a = device_felts((wa, ld), gen, dev)
+    lde_c = device_felts((wc, ld), gen, dev)
+    x = device_felts((m,), gen, dev)
+    vecs = [device_felts((k,), gen, dev)
+            for k in (wm + wa, wm + wa, wc, wm + wa, wm + wa, wc)]
+    zs = [device_felts((), gen, dev) for _ in range(5)]
+    mats = (lde_m[:, sl], lde_a[:, sl], lde_c[:, sl], x)
+    err = max_abs_err(PR._deep_core(*mats, *vecs, *zs),
+                      PR._deep_core_plain(*mats, *vecs, *zs))
+    dinv = gl.batch_inv(torch.stack([gl.sub(x, z) for z in zs[:3]]))
+    args = (*mats, *vecs, dinv, *zs[3:])
+    err = max(err, max_abs_err(PR.gl_cuda.deep_combine(*args),
+                               PR.deep_combine_plain(*args)))
+    what = f"{wm} + {wa} + {wc} rows x 2^{log_m} at row stride 2^{log_ld}"
+    check(err == 0, f"K4 {what}: kernel == plain")
+    if kernels is None:
+        return err
+    ms = timer(lambda: PR.gl_cuda.deep_combine(*args), iters=10)
+    pms = cuda_ms(lambda: PR.deep_combine_plain(*args), iters=1)
+    whole = timer(lambda: PR._deep_core(*mats, *vecs, *zs), iters=10)
+    log(f"[phase 2b] K4 gl_deep_combine {what}: kernel {ms:.4f} ms, plain "
+        f"{pms:.4f} ms, max_abs_err {err}; `_deep_core` with its batch_inv "
+        f"{whole:.4f} ms")
+    rows = wm + wa + wc + 3 + 1 + 1          # LDE rows, dinv, x, out
+    record(kernels, "gl_deep_combine", what, err, ms, pms,
+           rows * m * 8 + (4 * (wm + wa) + 2 * wc + 2) * 8,
+           [(m * wm, sass["k4_main"]), (m * wa, sass["k4_aux"]),
+            (m * wc, sass["k4_comp"])], None, clock_hz)
+    return err
+
+
+def scale_merge_inputs(dev):
+    """The merge inputs of fragment 0 of the 2^20-row proof (the program of
+    phase 4): the trace and aux commits, the constraint coefficients as the
+    transcript draws them, and the merger's rows for points 0 .. 2^20."""
+    from aero_tpu_torch.prover import prover as PR
+    from aero_tpu_torch.spec import field as F
+    prep = bench_gpu._prepare(long_fib_source(((1 << 20) - 64) // 12),
+                              [0, 1], 1 << 20, 16, dev)
+    air = prep.air
+    st = PR.ProverState(pub_inputs=prep.pub, device=str(dev),
+                        main_trace=prep.trace)
+    for i in (0, 1):
+        PR._run_stage(i, air, st)
+    air._aux_rand = [int(v) % F.P for v in st.aux_rand]
+    cc_t = [st.coin.draw_pair()
+            for _ in range(air.num_transition_constraints)]
+    cc_b = [st.coin.draw_pair() for _ in range(air.num_assertions)]
+    merger = PR.ConstraintMerger(air, st.aux_rand, cc_t, cc_b,
+                                 PR._ceval_static(air, dev), dev)
+    b = air.options.blowup_factor
+    frames = [PR._frag(lde_, a, PR.FRAG) for lde_ in (st.main_lde, st.aux_lde)
+              for a in (0, b)]
+    return merger.merge_inputs(frames[0], frames[1], frames[2], frames[3], 0)
+
+
+def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
+    """The field kernels (csrc/field.cu) against their plain versions at
+    the shapes of the 2^20-row proof, each timed beside its bound."""
+    timer = queued_ms(dev)
+    field_k1(dev, gen, 21, timer, sass, clock_hz, kernels)
+    field_k2(dev, gen, (4, (1 << 20) - 1), (2, 12345), timer, sass,
+             clock_hz, kernels)
+    field_k2(dev, gen, (3, 1 << 20), (0, 0), timer, sass, clock_hz, {})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    inputs = scale_merge_inputs(dev)
+    log(f"[phase 2b] the 2^20-row proof's fragment 0, through aux_commit "
+        f"and the constraint evaluation: {time.perf_counter() - t0:.3f} s")
+    field_k3(inputs, timer, sass, clock_hz, kernels,
+             "fragment 0 of the 2^20-row proof")
+    del inputs
+    torch.cuda.empty_cache()
+    field_k4(dev, gen, (72, 9, 8), 20, LOG_LDE, timer, sass, clock_hz,
+             kernels)
+    torch.cuda.empty_cache()
+
+
 def _launches():
+    from aero_tpu_torch.field import gl_cuda as fc
     from aero_tpu_torch.hash import blake2s_cuda as bc
     from aero_tpu_torch.ntt import ntt_cuda as nc
-    return {**nc.LAUNCHES, **bc.LAUNCHES}
+    return {**nc.LAUNCHES, **bc.LAUNCHES, **fc.LAUNCHES}
 
 
 def _reset_launches():
+    from aero_tpu_torch.field import gl_cuda as fc
     from aero_tpu_torch.hash import blake2s_cuda as bc
     from aero_tpu_torch.ntt import ntt_cuda as nc
     nc.reset_launches()
     bc.reset_launches()
+    fc.reset_launches()
 
 
 def _prove(src: str, min_rows: int, dev):
@@ -494,8 +835,10 @@ def _verify(res, src: str) -> None:
     verify(proof, pub, air=air)
 
 
+FIELD_KERNELS = ("gl_elementwise", "gl_scan", "gl_constraint_merge",
+                 "gl_deep_combine")
 PATH_KERNELS = ("gl_colntt", "blake2s_hash_columns", "blake2s_merge_level",
-                "blake2s_grind_pow")
+                "blake2s_grind_pow") + FIELD_KERNELS
 
 
 def phase_golden(dev):
@@ -693,7 +1036,8 @@ def phase_parser(dev) -> None:
         f"in {time.perf_counter() - t0:.3f} s")
 
 
-DRYRUN_KERNELS = ("gl_colntt", "blake2s_hash_columns", "blake2s_merge_level")
+DRYRUN_KERNELS = ("gl_colntt", "blake2s_hash_columns",
+                  "blake2s_merge_level") + FIELD_KERNELS
 LOG_DRYRUN_ROWS = 18
 DRYRUN_WORLDS = (1, 4)
 
@@ -785,6 +1129,24 @@ def phase_dryrun_shapes(dev, gen) -> None:
     log(f"[phase 7] shapes of every world: merge_level at each of the "
         f"{levels} levels from 2^{LOG_DRYRUN_ROWS + 3} digests down to the "
         f"root: kernel == plain, max_abs_err {worst}")
+    del d, k
+    # the field kernels: the aux bus scans of 2^18 rows, the divisors of a
+    # world-1 block (2^21 points) and the fragments of a world-1 block
+    # (2^20 of 2^21) and of a world-4 block (2^19 of 2^19)
+    worst = field_k1(dev, gen, LOG_DRYRUN_ROWS, None, None, None)
+    for shape in ((4, 1 << LOG_DRYRUN_ROWS), (2, 8 << LOG_DRYRUN_ROWS),
+                  (3, 2 << LOG_DRYRUN_ROWS)):
+        worst = max(worst, field_k2(dev, gen, shape, (1, 77), None, None,
+                                    None))
+    for log_m, log_ld in ((20, 21), (19, 19)):
+        worst = max(worst, field_k3(synthetic_merge(dev, gen, 1 << log_m),
+                                    None, None, None, what=f"2^{log_m}"))
+        worst = max(worst, field_k4(dev, gen, (72, 9, 8), log_m, log_ld,
+                                    None, None, None))
+        torch.cuda.empty_cache()
+    log(f"[phase 7] shapes of every world: K1 at 2^{LOG_DRYRUN_ROWS}, K2 on "
+        f"the aux scans and divisors, K3 and K4 on fragments of 2^20 and "
+        f"2^19 points: kernel == plain, max_abs_err {worst}")
 
 
 def phase_dryrun(dev, gen, kernels):
@@ -1207,9 +1569,17 @@ def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
         run = bench_gpu._timed_prove(prep)
     launches, dev_s, rows = bench_gpu._device_kernels(prof)
     check(launches > 0, "torch.profiler saw the device's kernels")
+    mul_kernels = bench_gpu.mul_launches(device=dev)
+    check(mul_kernels == 1, f"one field.mul is one device kernel, not "
+          f"{mul_kernels}")
     log("[profile] under torch.profiler: " + json.dumps({
         "seconds": run.seconds, "device_kernel_seconds": dev_s,
         "device_launches": launches,
+        # the same proof with the field algebra as int64 torch ops
+        # (PERF.md section 5)
+        "device_launches_before_the_field_kernels": 742012,
+        "device_kernels_a_field_mul": mul_kernels,
+        "wrapper_launches": run.launches,
         "idle_share": 1 - dev_s / run.seconds,
         "idle_share_of_the_last_proof_not_profiled": 1 - dev_s / last_s,
         "spans": run.spans,
@@ -1259,6 +1629,9 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
     kernels = {
+        **{name: dict(route="cuda", source=FIELD_SRC, replaces=where,
+                      note=note)
+           for name, (where, note) in FIELD_REPLACES.items()},
         "gl_colntt": dict(route="cuda", source=NTT_SRC, replaces=NTT_TPU),
         "blake2s_hash_columns": dict(route="cuda", source=B2S_SRC,
                                      replaces=B2S_TPU),
@@ -1271,6 +1644,7 @@ def main(argv=None) -> int:
     phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz)
     phase_ntt(dev, rng, gen, kernels, sass, clock_hz)
     torch.cuda.empty_cache()
+    phase_field(dev, gen, kernels, sass, clock_hz)
     golden_res, golden_digest, proof_bench = phase_golden(dev)
     scale_res, scale_bench = phase_scale(dev, kernels, proof_out)
     scale_bench = scale_bench._replace(       # phase 9 needs the times only
@@ -1289,7 +1663,7 @@ def main(argv=None) -> int:
             "launches_dryrun_world1", "launches_dryrun_world4")
     print(json.dumps({"kernels": [
         {"name": name, **{key: k[key] for key in keys},
-         **({"host_ms": k["host_ms"]} if "host_ms" in k else {})}
+         **{key: k[key] for key in ("host_ms", "note") if key in k}}
         for name, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

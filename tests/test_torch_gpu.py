@@ -297,3 +297,192 @@ def test_single_device_dryrun_on_the_card_equals_the_golden_roots(
     got = DR.single_device_dryrun(64)
     assert got["roots"] == want
     assert got["launches"]["gl_colntt"] > 0
+
+
+# ------------------------------------------- field kernels (csrc/field.cu)
+
+def _felts(rng, shape, device):
+    """Canonical felts with the edge values 0, 1, p - 1 and 2^32 first."""
+    vals = rng.integers(0, P, size=shape, dtype=np.uint64).reshape(-1)
+    edge = np.array([0, 1, P - 1, 1 << 32, (1 << 32) - 1], dtype=np.uint64)
+    vals[:min(len(edge), vals.size)] = edge[:vals.size]
+    return from_u64(vals.reshape(shape), device)
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+@pytest.mark.parametrize("n", [1, 5, 1000, 1 << 21])
+def test_elementwise_kernel_matches_plain(cuda_device, op, n):
+    from aero_tpu_torch.field import gl, gl_cuda
+    rng = np.random.default_rng(n)
+    a, b = _felts(rng, (n,), cuda_device), _felts(rng, (n,), cuda_device)
+    b = b.flip(0).contiguous()
+    gl_cuda.reset_launches()
+    got = getattr(gl, op)(a, b)
+    assert gl_cuda.LAUNCHES["gl_elementwise"] == 1
+    assert gl_cuda.LAUNCHES["gl_elementwise_copies"] == 0
+    assert torch.equal(got, getattr(gl, op + "_plain")(a, b))
+    # a 0-d operand on either side, read from device memory
+    s = gl.scalar(P - 2, cuda_device)
+    assert torch.equal(getattr(gl, op)(a, s), getattr(gl, op + "_plain")(a, s))
+    assert torch.equal(getattr(gl, op)(s, a), getattr(gl, op + "_plain")(s, a))
+
+
+@pytest.mark.parametrize("case", ["row", "cyclic", "both", "trailing",
+                                  "column_slice", "every_other",
+                                  "transposed", "three_dims"])
+def test_elementwise_kernel_broadcasts_and_strides(cuda_device, case):
+    """Broadcasts and strided views are read in place; an operand that
+    keeps three dims after collapsing ("three_dims") is copied first and
+    the copy counted."""
+    from aero_tpu_torch.field import gl, gl_cuda
+    rng = np.random.default_rng(7)
+
+    def f(shape):
+        return _felts(rng, shape, cuda_device)
+
+    a, b = {"row": lambda: (f((6, 1000)), f((6, 1))),
+            "cyclic": lambda: (f((6, 1000)), f((1000,))),
+            "both": lambda: (f((1, 7)), f((5, 1))),
+            "trailing": lambda: (f((3, 4, 5)), f((4, 5))),
+            "column_slice": lambda: (f((8, 600))[:, 100:400], f((8, 300))),
+            "every_other": lambda: (f((8, 600))[:, ::2], f((8, 300))),
+            "transposed": lambda: (f((300, 8)).T, f((8, 300))),
+            "three_dims": lambda: (f((3, 5, 64)), f((3, 1, 64)))}[case]()
+    gl_cuda.reset_launches()
+    for op in ("add", "sub", "mul"):
+        assert torch.equal(getattr(gl, op)(a, b),
+                           getattr(gl, op + "_plain")(a, b))
+        assert torch.equal(getattr(gl, op)(b, a),
+                           getattr(gl, op + "_plain")(b, a))
+    assert gl_cuda.LAUNCHES["gl_elementwise"] == 6
+    assert gl_cuda.LAUNCHES["gl_elementwise_copies"] == \
+        (6 if case == "three_dims" else 0)
+
+
+@pytest.mark.parametrize("e", [0, 1, 2, 3, 7, (1 << 23) + 5, P - 2,
+                               (1 << 64) - 1])
+def test_pow_kernel_matches_plain(cuda_device, e):
+    from aero_tpu_torch.field import gl, gl_cuda
+    x = _felts(np.random.default_rng(3), (4099,), cuda_device)
+    gl_cuda.reset_launches()
+    got = gl.pow_loop(x, e)
+    assert gl_cuda.LAUNCHES["gl_elementwise"] == 1
+    assert torch.equal(got, gl.pow_loop_plain(x, e))
+    assert torch.equal(gl.pow_loop(x[::3], e), gl.pow_loop_plain(x[::3], e))
+    if e == P - 2:
+        assert torch.equal(gl.inv(x), gl.inv_plain(x))
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (2048,), (2049,), (3, 4097),
+                                   (4, (1 << 20) - 1), (3, 1 << 20),
+                                   (2, 1 << 23)])
+def test_scan_kernel_matches_plain(cuda_device, shape):
+    from aero_tpu_torch.field import gl, gl_cuda
+    x = _felts(np.random.default_rng(len(shape) + shape[-1]), shape,
+               cuda_device)
+    for name in ("gf_cumprod", "gf_cumsum"):
+        gl_cuda.reset_launches()
+        got = getattr(gl, name)(x)
+        assert gl_cuda.LAUNCHES["gl_scan"] >= 1
+        assert torch.equal(got, getattr(gl, name + "_plain")(x))
+    if len(shape) == 2:
+        assert torch.equal(gl.gf_cumprod(x, axis=0),
+                           gl.gf_cumprod_plain(x, axis=0))
+
+
+@pytest.mark.parametrize("shape,zero", [((4, (1 << 20) - 1), (2, 12345)),
+                                        ((3, 1 << 20), (0, 0)),
+                                        ((3, 9), (1, 8)), ((1,), None)])
+def test_batch_inv_on_the_card_keeps_the_zero_rule(cuda_device, shape, zero):
+    """A zero anywhere in a row makes that row's output all zero; the
+    other rows are the inverses."""
+    from aero_tpu_torch.field import gl
+    x = _felts(np.random.default_rng(11), shape, cuda_device)
+    x[x == 0] = 5
+    if zero is not None:
+        x[zero] = 0
+    got = gl.batch_inv(x, axis=-1)
+    assert torch.equal(got, gl.batch_inv_plain(x, axis=-1))
+    if zero is not None:
+        assert not bool(got[zero[0]].any())
+        others = [r for r in range(shape[0]) if r != zero[0]]
+        assert torch.equal(gl.mul(got[others], x[others]),
+                           torch.ones_like(x[others]))
+
+
+@pytest.mark.parametrize("T,B,m", [(3, 4, 512), (112, 46, 4099),
+                                   (112, 46, 1 << 20), (5, 0, 7)])
+def test_constraint_merge_kernel_matches_plain(cuda_device, T, B, m):
+    from aero_tpu_torch.prover import prover as PR
+    rng = np.random.default_rng(T * B + m)
+    frame = _felts(rng, (8, m + 16), cuda_device)
+    t_evals = [_felts(rng, (m,), cuda_device) for _ in range(T)]
+    t_evals[0] = frame[1, 3:3 + m]                      # a view, not fresh
+    if T > 2:
+        t_evals[2] = PR.scalar(9, cuda_device)          # copied and counted
+    xp = [_felts(rng, (m,), cuda_device) for _ in range(4)]
+    dinv = _felts(rng, (2, m), cuda_device)
+    args = PR.MergeInputs(
+        t_evals, [xp[i % 4] for i in range(T)], _felts(rng, (T, 2),
+                                                       cuda_device),
+        [frame[j % 8, :m] for j in range(B)], [xp[3]] * B,
+        _felts(rng, (B, 2), cuda_device), _felts(rng, (B,), cuda_device),
+        _felts(rng, (m,), cuda_device), [dinv[j % 2] for j in range(B)])
+    PR.gl_cuda.reset_launches()
+    got = PR.constraint_merge(*args)
+    assert PR.gl_cuda.LAUNCHES["gl_constraint_merge"] == 1
+    assert PR.gl_cuda.LAUNCHES["gl_elementwise_copies"] == (T > 2)
+    assert torch.equal(got, PR.constraint_merge_plain(*args))
+
+
+@pytest.mark.parametrize("widths,m,ld", [((5, 2, 2), 256, 2048),
+                                         ((72, 9, 8), 4099, 4099),
+                                         ((2, 0, 8), 1000, 3000),
+                                         ((72, 9, 8), 1 << 20, 1 << 21)])
+def test_deep_combine_kernel_matches_plain(cuda_device, widths, m, ld):
+    """LDE rows read at the whole domain's row stride; no aux segment when
+    its width is 0."""
+    from aero_tpu_torch.prover import prover as PR
+    wm, wa, wc = widths
+    rng = np.random.default_rng(m + wm)
+    a0 = ld - m
+    main = _felts(rng, (wm, ld), cuda_device)[:, a0:]
+    aux = _felts(rng, (wa, ld), cuda_device)[:, a0:] if wa else None
+    comp = _felts(rng, (wc, ld), cuda_device)[:, a0:]
+    x = _felts(rng, (m,), cuda_device)
+    vec = [_felts(rng, (k,), cuda_device)
+           for k in (wm + wa, wm + wa, wc, wm + wa, wm + wa, wc)]
+    zs = [PR.scalar(int(v), cuda_device) for v in rng.integers(0, P, 5,
+                                                               np.uint64)]
+    PR.gl_cuda.reset_launches()
+    got = PR._deep_core(main, aux, comp, x, *vec, *zs)
+    assert PR.gl_cuda.LAUNCHES["gl_deep_combine"] == 1
+    assert PR.gl_cuda.LAUNCHES["gl_elementwise_copies"] == 0
+    assert torch.equal(got, PR._deep_core_plain(main, aux, comp, x, *vec,
+                                                *zs))
+
+
+def test_miden_proof_on_card_equals_cpu_through_the_field_kernels(
+        cuda_device):
+    """A 64-row Miden proof: equal bytes, every field kernel launched, one
+    kernel a field multiply."""
+    from aero_tpu_torch import sdk
+    from aero_tpu_torch.field import gl, gl_cuda
+    from aero_tpu_torch.sdk.pb import aero_pb2 as pb
+    from aero_tpu_torch.vm import fibonacci_source
+    program = pb.MidenProgram(program=fibonacci_source(10))
+    inputs = pb.MidenProgramInputs(stack_init=[1, 0])
+    fast = sdk.options_to_pb(ProofOptions(num_queries=7, blowup_factor=8,
+                                          grinding_factor=2))
+    gl_cuda.reset_launches()
+    card = sdk.prove(program, inputs, fast, min_rows=64, device=cuda_device)
+    for name in ("gl_elementwise", "gl_scan", "gl_constraint_merge",
+                 "gl_deep_combine"):
+        assert gl_cuda.LAUNCHES[name] > 0, name
+    cpu = sdk.prove(program, inputs, fast, min_rows=64, device="cpu")
+    assert card.native_proof.to_bytes() == cpu.native_proof.to_bytes()
+    a = _felts(np.random.default_rng(0), (1 << 10,), cuda_device)
+    gl_cuda.reset_launches()
+    gl.mul(a, a)
+    assert gl_cuda.LAUNCHES == {**{k: 0 for k in gl_cuda.LAUNCHES},
+                                "gl_elementwise": 1}
