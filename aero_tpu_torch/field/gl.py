@@ -17,9 +17,11 @@ The field ops (`add`, `sub`, `neg`, `mul`, `square`, `mul_scalar`,
 tensor to the kernels of `csrc/field.cu` through `gl_cuda` (K1, K2) and a
 CPU tensor to their plain versions here (`add_plain`, ..., written in the
 torch ops described above), which are also the oracle the kernels are held
-to. Composite functions (`batch_inv`, `gf_sum`, `power_series`, ...) are
-written over the dispatching ops and so run on either; `batch_inv_plain`
-and `gf_sum_plain` are their renderings in the plain ops alone.
+to. `batch_inv` sends a CUDA tensor to K2's fused batch inversion and a
+CPU tensor to `batch_inv_plain`, the Montgomery scans in the plain ops.
+Other composite functions (`gf_sum`, `power_series`, ...) are written over
+the dispatching ops and so run on either; `gf_sum_plain` is its rendering
+in the plain ops alone.
 """
 
 from __future__ import annotations
@@ -284,31 +286,30 @@ def gf_cumsum(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
     return gf_cumsum_plain(x, axis)
 
 
-def _batch_inv(a: torch.Tensor, axis: int, cumprod, inv_, mul_
-               ) -> torch.Tensor:
-    """Montgomery batch inversion along `axis`: one Fermat inversion per
-    lane plus prefix/suffix product scans (`jax_gl.batch_inv`). A zero
-    anywhere in a lane makes the whole lane zero (its total has no
-    inverse), as in the JAX package."""
+def batch_inv_plain(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Montgomery batch inversion along `axis` in the plain ops: one Fermat
+    inversion per lane plus prefix/suffix product scans
+    (`jax_gl.batch_inv`). A zero anywhere in a lane makes the whole lane
+    zero (its total has no inverse), as in the JAX package."""
     x = a.movedim(axis, -1)
-    prod = cumprod(x)
-    total_inv = inv_(prod[..., -1:])
-    suffix = cumprod(x.flip(-1)).flip(-1)
+    prod = gf_cumprod_plain(x)
+    total_inv = inv_plain(prod[..., -1:])
+    suffix = gf_cumprod_plain(x.flip(-1)).flip(-1)
     one = torch.ones_like(x[..., :1])
     suffix_excl = torch.cat([suffix[..., 1:], one], dim=-1)
-    inv_prefix = mul_(suffix_excl, total_inv)            # 1 / prod_i
+    inv_prefix = mul_plain(suffix_excl, total_inv)       # 1 / prod_i
     shifted = torch.cat([one, prod[..., :-1]], dim=-1)   # prod_{i-1}
-    return mul_(inv_prefix, shifted).movedim(-1, axis)
+    return mul_plain(inv_prefix, shifted).movedim(-1, axis)
 
 
 def batch_inv(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    """Montgomery batch inversion (`_batch_inv`): on the card, the scans
-    are kernel K2 and the inversion and products kernel K1."""
-    return _batch_inv(a, axis, gf_cumprod, inv, mul)
-
-
-def batch_inv_plain(a: torch.Tensor, axis: int = -1) -> torch.Tensor:
-    return _batch_inv(a, axis, gf_cumprod_plain, inv_plain, mul_plain)
+    """Montgomery batch inversion along `axis`: on the card one call of
+    K2's `gl_batch_inv` (three launches), on the CPU `batch_inv_plain`.
+    Both give `jax_gl.batch_inv`'s values: each inverse is unique, and a
+    row with a zero is all zero."""
+    if gl_cuda.on_cuda(a):
+        return gl_cuda.batch_inv(a.movedim(axis, -1)).movedim(-1, axis)
+    return batch_inv_plain(a, axis)
 
 
 def _tree_sum(x: torch.Tensor, axis: int, add_) -> torch.Tensor:

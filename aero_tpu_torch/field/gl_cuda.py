@@ -7,9 +7,11 @@ counterpart:
 - K1 `gl_elementwise`: add, sub, mul mod p of two operands, or a^e for a
   host exponent e (`jax_gl.add / sub / mul / pow_loop`);
 - K2 `gl_scan`: inclusive prefix sum or product along the last axis
-  (`lax.associative_scan` under `gf_cumsum`, `gf_cumprod`, `batch_inv`),
-  launched as `gl_scan_tiles` and, for a row longer than one tile,
-  `gl_scan_carry`;
+  (`lax.associative_scan` under `gf_cumsum`, `gf_cumprod`), one launch
+  after a memset of its scratch, a single pass with decoupled look-back;
+  and `gl_batch_inv`, Montgomery's
+  batch inversion along the last axis (`jax_gl.batch_inv`), one call of
+  three launches;
 - K3 `gl_constraint_merge`: the random linear combination of one fragment's
   constraint evaluations (the merge of `jax.jit(frag_fn)`,
   `aero_tpu/prover/prover.py:407-429`);
@@ -33,11 +35,13 @@ import torch
 
 from .. import _build
 
-LAUNCHES = {"gl_elementwise": 0, "gl_scan": 0, "gl_constraint_merge": 0,
-            "gl_deep_combine": 0, "gl_elementwise_copies": 0}
+LAUNCHES = {"gl_elementwise": 0, "gl_scan": 0, "gl_batch_inv": 0,
+            "gl_constraint_merge": 0, "gl_deep_combine": 0,
+            "gl_elementwise_copies": 0}
 
 ADD, SUB, MUL, POW = 0, 1, 2, 3          # csrc/field.cu `Op`
-SCAN_TILE = 2048                         # csrc/field.cu kScanTile
+SCAN_TILE = 4096                         # csrc/field.cu kScanTile
+INV_TILE = 2048                          # csrc/field.cu kInvTile
 MODE_FULL, MODE_ONE, MODE_STRIDED = 0, 1, 2
 
 
@@ -156,40 +160,62 @@ def power(a: torch.Tensor, e: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------------- K2
 
-def _scan_rows(x: torch.Tensor, op: int) -> torch.Tensor:
-    """Inclusive scan of each row of a contiguous (rows, n) tensor: one
-    launch over tiles of SCAN_TILE, then, for rows past one tile, the scan
-    of the tile totals (the same function, a level up) and one launch that
-    carries them in."""
-    rows, n = x.shape
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    ntiles = -(-n // SCAN_TILE)
-    totals = torch.empty((rows, ntiles), dtype=torch.int64, device=x.device)
-    _build.launch("gl_scan_tiles", x.data_ptr(), out.data_ptr(),
-                  totals.data_ptr(), rows, n, ntiles, op, _stream(x))
-    LAUNCHES["gl_scan"] += 1
-    if ntiles > 1:
-        carries = _scan_rows(totals, op)
-        _build.launch("gl_scan_carry", out.data_ptr(), carries.data_ptr(),
-                      rows, n, ntiles, op, _stream(x))
-        LAUNCHES["gl_scan"] += 1
-    return out
-
-
-def scan(x: torch.Tensor, op: int) -> torch.Tensor:
-    """Inclusive prefix sum (op ADD) or product (op MUL) mod p along the
-    last axis of a tensor with at least one dim."""
-    if op not in (ADD, MUL) or x.dim() == 0:
-        raise ValueError(f"scan: op {op} on a {x.dim()}-d tensor")
+def _rows(x: torch.Tensor, what: str) -> tuple:
+    """(x contiguous, rows, n) for K2 along the last axis of `x`, a CUDA
+    int64 tensor with at least one dim; a view that is not contiguous is
+    copied first and counted."""
+    if not on_cuda(x) or x.dim() == 0:
+        raise ValueError(f"{what}: needs a CUDA tensor with at least one "
+                         f"dim, got {_what(x)} of {x.dim()} dims")
     if not x.is_contiguous():
         x = x.contiguous()
         LAUNCHES["gl_elementwise_copies"] += 1
     n = x.shape[-1]
-    if n == 0:
-        return torch.empty_like(x)
-    return _scan_rows(x.view(-1, n), op).view(x.shape)
+    return x, (x.numel() // n if n else 0), n
+
+
+def tiles(rows: int, n: int, tile: int) -> int:
+    """Tiles of `tile` elements that K2 takes for (rows, n)."""
+    return rows * -(-n // tile)
+
+
+def scan_scratch_words(rows: int, n: int) -> int:
+    """int64 words of `gl_scan`'s scratch (csrc/field.cu
+    `scan_scratch_words`): the ticket, then two values a tile."""
+    return 1 + 2 * tiles(rows, n, SCAN_TILE)
+
+
+def scan(x: torch.Tensor, op: int) -> torch.Tensor:
+    """Inclusive prefix sum (op ADD) or product (op MUL) mod p along the
+    last axis: one launch of `gl_scan` over every row."""
+    if op not in (ADD, MUL):
+        raise ValueError(f"scan: unknown op {op}")
+    x, rows, n = _rows(x, "scan")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    words = scan_scratch_words(rows, n)
+    scratch = torch.empty(words, dtype=torch.int64, device=x.device)
+    _build.launch("gl_scan", x.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), words, rows, n, op, _stream(x))
+    LAUNCHES["gl_scan"] += 1
+    return out
+
+
+def batch_inv(x: torch.Tensor) -> torch.Tensor:
+    """1 / x mod p along the last axis, a row with a zero all zero (the rule
+    of `jax_gl.batch_inv`): one call of `gl_batch_inv`, three launches (the
+    tiles' products, each row's factors, the tiles' inverses)."""
+    x, rows, n = _rows(x, "batch_inv")
+    out = torch.empty_like(x)
+    if out.numel() == 0:
+        return out
+    words = 2 * tiles(rows, n, INV_TILE)
+    scratch = torch.empty(words, dtype=torch.int64, device=x.device)
+    _build.launch("gl_batch_inv", x.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), words, rows, n, _stream(x))
+    LAUNCHES["gl_batch_inv"] += 3
+    return out
 
 
 # ---------------------------------------------------------------------- K3

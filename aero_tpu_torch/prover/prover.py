@@ -405,8 +405,8 @@ def deep_combine(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt, ood,
 def _deep_core(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt, ood,
                a_vec, b_vec, c_vec, z, zg, zm, lam, mu) -> torch.Tensor:
     """DEEP composition of one domain fragment as weighted column sums: the
-    divisors' inverses by `batch_inv` (kernels K2 and K1 on the card), then
-    `deep_combine` (K4)."""
+    divisors' inverses by `batch_inv` (K2's batch inversion on the card),
+    then `deep_combine` (K4)."""
     dinv = batch_inv(torch.stack([sub(x_dom, z), sub(x_dom, zg),
                                   sub(x_dom, zm)]), axis=-1)
     return deep_combine(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt,

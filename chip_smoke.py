@@ -114,15 +114,34 @@ FIELD_REPLACES = {
     "gl_elementwise": ("aero_tpu/field/jax_gl.py:210",
                        "no Pallas kernel: XLA's fusion of jax_gl.add / sub "
                        "/ mul / pow_loop (jax_gl.py:187-304) under jax.jit"),
-    "gl_scan": ("aero_tpu/field/jax_gl.py:312",
+    "gl_scan": ("aero_tpu/field/jax_gl.py:490",
                 "no Pallas kernel: lax.associative_scan(mul / add) under "
-                "jax.jit (jax_gl.py:312, :343, :490, :496)"),
+                "jax.jit in gf_cumprod, gf_cumsum (jax_gl.py:490, :496); "
+                "one launch, a single pass with decoupled look-back"),
+    "gl_batch_inv": ("aero_tpu/field/jax_gl.py:309",
+                     "no Pallas kernel: jax_gl.batch_inv under jax.jit, two "
+                     "associative scans (:312, :343), flips, one inverse "
+                     "and products; one call of three launches (tile "
+                     "products, row factors, apply); bound by the "
+                     "function's 16 B and 3 multiplies an element and one "
+                     "inverse a row; the kernels move 24 B and do about "
+                     "twice those multiplies"),
     "gl_constraint_merge": ("aero_tpu/prover/prover.py:407",
                             "no Pallas kernel: the merge of jax.jit(frag_fn)"
                             " (prover.py:407-429)"),
     "gl_deep_combine": ("aero_tpu/prover/prover.py:556",
                         "no Pallas kernel: _deep_core_jit "
                         "(prover.py:556-589)"),
+}
+# what --profile prints beside its own figures for the same 2^20-row
+# proof: earlier builds' numbers, copied from PERF.md section 5, not measured
+# by the run that prints them
+PREVIOUS_PROFILE = {
+    "source": "PERF.md section 5",
+    "field algebra as int64 torch ops": {"device_launches": 742012},
+    "K2 as two-pass scans under a composite batch_inv": {
+        "device_launches": 13813, "device_kernel_seconds": 0.181,
+        "idle_share": "0.77-0.84"},
 }
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SMS = 132                      # streaming multiprocessors of an H100 SXM
@@ -264,7 +283,11 @@ def field_sass_counts(fns) -> dict:
     an element of K1's multiply of two full operands (its storing loop,
     which the compiler may unroll, over the stores in it: one an element)
     and a bit of its exponent loop (the loop with no store); a thread of
-    each scan kernel (the whole kernel: its loops are unrolled); a term of
+    each K2 kernel, its whole code once (the loops over a thread's elements
+    are unrolled; the row factors' loops over tile products and the
+    inverse's squarings count once), the scan's look-back loop apart: one
+    trip a tile for warp 0's 32 lanes (the least a tile needs; its trips
+    depend on the order the tiles ran in); a term of
     K3's two loops (transitions, assertions) and a row of K4's three (main,
     aux, composition), one term a trip. Where a kernel's loops are not as
     described, its whole code stands for each unit, an overcount, and the
@@ -301,15 +324,35 @@ def field_sass_counts(fns) -> dict:
     def each(lps):
         return [_sass.count_instructions(lp) for lp in lps]
 
+    def whole(name):
+        return _sass.count_instructions(_sass.find_function(fns, name))
+
+    def minus(a, b):
+        return _sass.Counts(a.alu - b.alu, a.fma - b.fma,
+                            a.uniform - b.uniform, a.memory - b.memory,
+                            a.control - b.control,
+                            a.shared_stores - b.shared_stores)
+
+    def look_back_apart(name):
+        """(the kernel but its look-back loop, one trip of that loop): the
+        widest loop that holds the spin's NANOSLEEP."""
+        body = _sass.find_function(fns, name)
+        spins = [lp for lp in _sass.loops(body)
+                 if any(i.op == "NANOSLEEP" for i in lp)]
+        check(bool(spins), f"{name} has its look-back loop")
+        lb = _sass.count_instructions(max(spins, key=len))
+        return minus(_sass.count_instructions(body), lb), lb
+
     k3 = pick("constraint_merge_kernel", 2, each)
     k4 = pick("deep_combine_kernel", 3, each)
+    scan, look_back = look_back_apart("chained_scan_kernelILi2E")
     return {
         "k1_mul": pick("elementwise_kernelILi2ELi0ELi0E", 1, storing)[0],
         "k1_pow_bit": pick("elementwise_kernelILi3ELi0ELi1E", 1, bit_loop)[0],
-        "k2_tiles": _sass.count_instructions(
-            _sass.find_function(fns, "scan_tiles_kernelILi2E")),
-        "k2_carry": _sass.count_instructions(
-            _sass.find_function(fns, "scan_carry_kernelILi2E")),
+        "k2_scan": scan, "k2_look_back": look_back,
+        "k2_tile_products": whole("tile_products_kernel"),
+        "k2_row_factors": whole("row_factors_kernel"),
+        "k2_apply": whole("batch_inv_apply_kernel"),
         "k3_transition": k3[0], "k3_assertion": k3[1],
         "k4_main": k4[0], "k4_aux": k4[1], "k4_comp": k4[2]}
 
@@ -569,18 +612,35 @@ def queued_ms(dev):
     return lambda fn, iters=20: cuda_ms_queued(fn, iters, busy)
 
 
-def scan_terms(rows: int, n: int, sass) -> list:
-    """(threads, instructions a thread) of every launch K2 makes for a
-    (rows, n) scan: tiles of 2048 and, a level up, their totals."""
-    from aero_tpu_torch.field.gl_cuda import SCAN_TILE
-    terms = []
-    while True:
-        ntiles = -(-n // SCAN_TILE)
-        terms.append((rows * ntiles * 256, sass["k2_tiles"]))
-        if ntiles == 1:
-            return terms
-        terms.append((rows * (ntiles - 1) * 256, sass["k2_carry"]))
-        n = ntiles
+# the multiplies of p - 2's addition chain, 63 squarings and 9 products
+# (csrc/field.cu gl_inv)
+INV_CHAIN_MULS = 72
+
+
+def k2_terms(rows: int, n: int, sass) -> tuple:
+    """((units, instructions a unit) terms of what each function needs,
+    (the same of what K2's kernels execute)) for gl_scan and gl_batch_inv
+    on a (rows, n) call. What a function needs: a scan one field
+    operation an element; a batch inversion three multiplies an element
+    (Montgomery's trick: the prefix products, then two an element on the
+    way back) and one addition-chain inverse a row; a multiply is K1's
+    full x full multiply less its loads and stores. What the kernels
+    execute: gl_scan's one launch, gl_batch_inv's three."""
+    from aero_tpu_torch import _sass
+    from aero_tpu_torch.field.gl_cuda import INV_TILE, SCAN_TILE, tiles
+    m = sass["k1_mul"]
+    mul = _sass.Counts(m.alu, m.fma, m.uniform, 0, m.control,
+                       m.shared_stores)
+    need_scan = [(rows * n, mul)]
+    need_inv = [(3 * rows * n + INV_CHAIN_MULS * rows, mul)]
+    scan_tiles = tiles(rows, n, SCAN_TILE)
+    run_scan = [(scan_tiles * 256, sass["k2_scan"]),
+                (scan_tiles * 32, sass["k2_look_back"])]
+    inv_tiles = tiles(rows, n, INV_TILE)
+    run_inv = [(inv_tiles * 256, sass["k2_tile_products"]),
+               (rows * 256, sass["k2_row_factors"]),
+               (inv_tiles * 256, sass["k2_apply"])]
+    return (need_scan, need_inv), (run_scan, run_inv)
 
 
 def field_k1(dev, gen, log_n: int, timer, sass, clock_hz, kernels=None):
@@ -637,35 +697,62 @@ def field_k1(dev, gen, log_n: int, timer, sass, clock_hz, kernels=None):
     return err
 
 
-def field_k2(dev, gen, shape, zero_at, timer, sass, clock_hz, kernels=None):
-    """K2 (and batch_inv over it) against the plain versions on `shape`,
-    with a zero at `zero_at`: that row of batch_inv must be all zero."""
-    from aero_tpu_torch.field import gl
+def field_k2(dev, gen, shape, zero_at, timer, sass, clock_hz, kernels=None,
+             what="", rows_for=()):
+    """K2's scans and batch inversion against their plain versions on
+    `shape` (rows, n), with a zero at `zero_at` and none elsewhere: that
+    row of batch_inv must be all zero, the others the inverses. With
+    `kernels`, each is timed beside its bound (what the function needs;
+    what the kernels execute is logged beside it), and the kernels named
+    in `rows_for` take this shape's row of the `kernels` line."""
+    from aero_tpu_torch.field import gl, gl_cuda
     x = device_felts(shape, gen, dev)
     x[x == 0] = 1
     x[zero_at] = 0
     err = 0
     for fn in ("gf_cumprod", "gf_cumsum", "batch_inv"):
+        gl_cuda.reset_launches()
         err = max(err, max_abs_err(getattr(gl, fn)(x),
                                    getattr(gl, fn + "_plain")(x)))
+        want = {"batch_inv": ("gl_batch_inv", 3)}.get(fn, ("gl_scan", 1))
+        check(gl_cuda.LAUNCHES[want[0]] == want[1],
+              f"{fn} {shape}: {want[1]} launch(es) of {want[0]}")
     inv = gl.batch_inv(x)
     check(not bool(inv[zero_at[0]].any()), f"batch_inv {shape}: the row "
           "with a zero is all zero")
+    others = [r for r in range(shape[0]) if r != zero_at[0]]
+    if others:
+        check(torch.equal(gl.mul(inv[others], x[others]),
+                          torch.ones_like(x[others])),
+              f"batch_inv {shape}: the other rows are the inverses")
     check(err == 0, f"K2 {shape}: kernel == plain")
     if kernels is None:
         return err
     rows, n = shape
     ms = timer(lambda: gl.gf_cumprod(x))
+    sms = timer(lambda: gl.gf_cumsum(x))
     pms = cuda_ms(lambda: gl.gf_cumprod_plain(x), iters=1)
-    bms = timer(lambda: gl.batch_inv(x), iters=5)
+    bms = timer(lambda: gl.batch_inv(x), iters=10)
     bpms = cuda_ms(lambda: gl.batch_inv_plain(x), iters=1)
-    log(f"[phase 2b] K2 gl_scan {rows} x {n} (a zero in row {zero_at[0]}): "
-        f"gf_cumprod kernel {ms:.4f} ms, plain {pms:.4f} ms; batch_inv "
-        f"{bms:.4f} ms, plain {bpms:.4f} ms; max_abs_err {err}")
-    record(kernels if shape == (4, (1 << 20) - 1) else {},
-           "gl_scan" if shape == (4, (1 << 20) - 1) else None,
-           f"gf_cumprod {rows} x {n}", err, ms, pms, 2 * rows * n * 8,
-           scan_terms(rows, n, sass), None, clock_hz)
+    log(f"[phase 2b] K2 {rows} x {n}{what} (a zero in row {zero_at[0]}): "
+        f"gl_scan gf_cumprod {ms:.4f} ms, gf_cumsum {sms:.4f} ms, plain "
+        f"gf_cumprod {pms:.4f} ms; gl_batch_inv {bms:.4f} ms, plain "
+        f"{bpms:.4f} ms; max_abs_err {err}")
+    need, run = k2_terms(rows, n, sass)
+    # each input element read once and each output written once: 16 B an
+    # element for either function (the batch inversion's kernels read x
+    # twice, 24 B)
+    for name, t, p, terms, ran in (("gl_scan", ms, pms, need[0], run[0]),
+                                   ("gl_batch_inv", bms, bpms, need[1],
+                                    run[1])):
+        keep = name in rows_for
+        record(kernels if keep else {}, name if keep else None,
+               f"{'gf_cumprod' if name == 'gl_scan' else 'batch_inv'} "
+               f"{rows} x {n}", err, t, p, 16 * rows * n, terms, None,
+               clock_hz)
+        r_ms, _ = bound(0, ran, clock_hz)
+        log(f"          the kernels' own {sum(u * c.total for u, c in ran)}"
+            f" instructions would take {r_ms:.4f} ms")
     return err
 
 
@@ -784,9 +871,20 @@ def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
     the shapes of the 2^20-row proof, each timed beside its bound."""
     timer = queued_ms(dev)
     field_k1(dev, gen, 21, timer, sass, clock_hz, kernels)
-    field_k2(dev, gen, (4, (1 << 20) - 1), (2, 12345), timer, sass,
-             clock_hz, kernels)
-    field_k2(dev, gen, (3, 1 << 20), (0, 0), timer, sass, clock_hz, {})
+    # the shape the two-pass scan was timed at first (to compare with its
+    # times), then the 2^20-row proof's own: _deep_core's divisors (8 a
+    # proof, gl_batch_inv's row of the kernels line), the aux build's
+    # inversions, a bus scan (gl_scan's row), and ceval_domain's divisors
+    # over the whole domain (once an air, cached)
+    for shape, zero, what, rows_for in (
+            ((4, (1 << 20) - 1), (2, 12345), "", ()),
+            ((3, 1 << 20), (0, 0), ", _deep_core", ("gl_batch_inv",)),
+            ((4, 1 << 20), (3, (1 << 20) - 1), ", the aux build", ()),
+            ((1, (1 << 20) - 1), (0, 2048), ", a bus scan", ("gl_scan",)),
+            ((2, 1 << 23), (1, 4095), ", ceval_domain", ())):
+        field_k2(dev, gen, shape, zero, timer, sass, clock_hz, kernels, what,
+                 rows_for)
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     inputs = scale_merge_inputs(dev)
@@ -835,8 +933,8 @@ def _verify(res, src: str) -> None:
     verify(proof, pub, air=air)
 
 
-FIELD_KERNELS = ("gl_elementwise", "gl_scan", "gl_constraint_merge",
-                 "gl_deep_combine")
+FIELD_KERNELS = ("gl_elementwise", "gl_scan", "gl_batch_inv",
+                 "gl_constraint_merge", "gl_deep_combine")
 PATH_KERNELS = ("gl_colntt", "blake2s_hash_columns", "blake2s_merge_level",
                 "blake2s_grind_pow") + FIELD_KERNELS
 
@@ -1036,8 +1134,11 @@ def phase_parser(dev) -> None:
         f"in {time.perf_counter() - t0:.3f} s")
 
 
+# a rank's counted stages run no scan: the aux segment, whose bus is K2's
+# scans, is built in the set-up
 DRYRUN_KERNELS = ("gl_colntt", "blake2s_hash_columns",
-                  "blake2s_merge_level") + FIELD_KERNELS
+                  "blake2s_merge_level") + tuple(
+                      k for k in FIELD_KERNELS if k != "gl_scan")
 LOG_DRYRUN_ROWS = 18
 DRYRUN_WORLDS = (1, 4)
 
@@ -1575,9 +1676,8 @@ def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
     log("[profile] under torch.profiler: " + json.dumps({
         "seconds": run.seconds, "device_kernel_seconds": dev_s,
         "device_launches": launches,
-        # the same proof with the field algebra as int64 torch ops
-        # (PERF.md section 5)
-        "device_launches_before_the_field_kernels": 742012,
+        # not measured here: the same proof's earlier figures
+        "previous": PREVIOUS_PROFILE,
         "device_kernels_a_field_mul": mul_kernels,
         "wrapper_launches": run.launches,
         "idle_share": 1 - dev_s / run.seconds,

@@ -19,8 +19,8 @@ from aero_tpu.vm import execute_full, fibonacci_source, program_hash
 from aero_tpu_torch.air import fib as TF
 from aero_tpu_torch.air import miden as TM
 from aero_tpu_torch.field import from_u64, to_u64
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 P = (1 << 64) - (1 << 32) + 1
 SRC = fibonacci_source(10)

@@ -7,7 +7,9 @@ minute to compile each jitted transform size) and through `bench_gpu`'s on
 bit (tolerance: none), and the butterfly counts equal `bench.py`'s formulas.
 `main()` prints one record for every planned metric, exits non-zero when a
 step raises and 0 with skip records when the budget is spent; without
-`device=` the functions raise where there is no card.
+`device=` the functions raise where there is no card. The scale proof
+against a live `aero_tpu` proof is `test_torch_bench_scale.py`: its XLA:CPU
+compile alone outlasts the rest of this file.
 """
 
 import hashlib
@@ -29,8 +31,8 @@ from aero_tpu.field import GF
 from aero_tpu.hash.blake2s_pallas import hash_columns_t, merkle_levels_t
 from aero_tpu.spec import field as F
 from aero_tpu_torch import field as T
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P = F.P
@@ -142,45 +144,6 @@ def test_bench_lde_2e24_raises_when_the_two_routes_disagree(monkeypatch):
 def test_long_fib_source_is_bench_py_s():
     for n in (0, 1, 5, 87376):
         assert bench_gpu.long_fib_source(n) == bench.long_fib_source(n)
-
-
-@pytest.fixture(scope="module")
-def jax_scale_proof():
-    """`bench.bench_proof_scale`'s program, inputs and options through
-    `aero_tpu` at 64 rows with 2 bits of grinding: the proof it times."""
-    from aero_tpu.air.miden import MidenAir, make_public_inputs
-    from aero_tpu.prover.prover import prove
-    from aero_tpu.spec.proof import ProofOptions
-    from aero_tpu.vm import execute_full, program_hash
-    src = bench.long_fib_source(((1 << 6) - 64) // 12)
-    trace, out_stack, overflow = execute_full(
-        src, [0, 1], min_rows=1 << 6, max_rows=1 << 23)
-    assert trace.shape[1] == 1 << 6
-    pub = make_public_inputs(program_hash(src), [0, 1], out_stack,
-                             overflow=overflow)
-    opts = ProofOptions(num_queries=27, blowup_factor=8, grinding_factor=2)
-    air = MidenAir(trace.shape[1], pub, opts, program=src)
-    return prove(air, J.to_gf(trace), pub), pub, air
-
-
-def test_bench_proof_scale_bytes_equal_aero_tpu(jax_scale_proof):
-    from aero_tpu.spec.verifier import verify
-    want, pub, air = jax_scale_proof
-    r = bench_gpu.bench_proof_scale(log_rows=6, grind=2, device="cpu")
-    steady_dt, cold_dt, size = r[:3]           # bench.py's three values
-    assert size == len(want.to_bytes()) and steady_dt > 0 and cold_dt > 0
-    assert r.cold.proof.to_bytes() == want.to_bytes()
-    assert r.steady.proof.to_bytes() == want.to_bytes()
-    assert r.prep.pub.to_bytes() == pub.to_bytes()
-    assert set(r.steady.spans) == set(bench_gpu_stages())
-    bench_gpu.verify_proof(r.prep, r.steady.proof)
-    # the reference's verifier accepts the port's proof
-    verify(type(want).from_bytes(r.steady.proof.to_bytes()), pub, air=air)
-
-
-def bench_gpu_stages():
-    from aero_tpu_torch.prover import STAGES
-    return STAGES
 
 
 def test_bench_proof_scale_refuses_a_padded_trace(monkeypatch):

@@ -20,8 +20,8 @@ from aero_tpu_torch.parallel import dist_ntt as DN
 from aero_tpu_torch.parallel.mesh import (gather_domain, join_blocks,
                                           run_ranks, shard_domain,
                                           split_blocks)
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 P = T.P
 WORLDS = (2, 4, 8)

@@ -11,8 +11,8 @@ import torch
 from aero_tpu import field as J
 from aero_tpu.spec import field as F
 from aero_tpu_torch import field as T
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 P = F.P
 RNG = np.random.default_rng(1)

@@ -9,6 +9,8 @@ a fixed seed, every comparison is exact, and every case stays at 2^8
 points or fewer, the JAX side op by op (`jax.disable_jit`).
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -23,8 +25,8 @@ from aero_tpu_torch.air import miden as TM
 from aero_tpu_torch.field import gl, gl_cuda
 from aero_tpu_torch.ntt import lde
 from aero_tpu_torch.prover import prover as TP
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 P = gl.P
 EDGE = [0, 1, P - 1, 1 << 32, (1 << 32) - 1, P - 2]
@@ -164,6 +166,147 @@ def test_k2_plain_scans_along_the_first_axis():
         with jax.disable_jit():
             want = J.from_gf(getattr(J, fn)(J.to_gf(x), axis=0))
         assert np.array_equal(gl.to_u64(got), want), fn
+
+
+# The algebra of K2's kernels (csrc/field.cu), emulated with Python ints at
+# a small tile: a tile of `threads` runs of `items` elements, as on the card
+# (256 runs of 8 there, 4 x 2 or 2 x 4 here).
+
+def _fmul(a, b):
+    return a * b % P
+
+
+def _prod(vals):
+    r = 1
+    for v in vals:
+        r = r * v % P
+    return r
+
+
+def _emulate_batch_inv(row, threads, items):
+    """gl_batch_inv on one row: (a) each tile's product; (b) the row's
+    factor of tile k, F_k = (tiles before k)(tiles after k) / (the row's
+    product), the inverse as x^(p-2) (0 for 0); (c) in tile k, thread t's
+    run: e_i the product of the run before i, g = F_k (runs before t)
+    (runs after t), then from the run's end out_i = e_i g, g *= x_i."""
+    tile = threads * items
+    n = len(row)
+    ntiles = -(-n // tile)
+    x = list(row) + [1] * (ntiles * tile - n)          # identity past n
+    tiles = [x[k * tile:(k + 1) * tile] for k in range(ntiles)]
+    tp = [_prod(t) for t in tiles]                                 # (a)
+    tinv = pow(_prod(tp), P - 2, P)                                # (b)
+    factor = [_prod(tp[:k]) * _prod(tp[k + 1:]) * tinv % P
+              for k in range(ntiles)]
+    out = []
+    for k, t in enumerate(tiles):                                  # (c)
+        runs = [t[r * items:(r + 1) * items] for r in range(threads)]
+        tot = [_prod(r) for r in runs]
+        for r, run in enumerate(runs):
+            e = [_prod(run[:i]) for i in range(items)]
+            g = factor[k] * _prod(tot[:r]) * _prod(tot[r + 1:]) % P
+            res = [0] * items
+            for i in reversed(range(items)):
+                res[i] = _fmul(e[i], g)
+                g = _fmul(g, run[i])
+            out += res
+    return out[:n]
+
+
+def _rows_with_zeros(n, rng, tile):
+    """A row without a zero, then one with a zero at its first element, at
+    its last, at each side of the first tile edge (7, 8, 9) where the row
+    reaches, and one with a zero in every tile."""
+    where = [None, [0], [n - 1]] + [[j] for j in (7, 8, 9) if j < n]
+    where.append(list(range(0, n, tile)))
+    rows = []
+    for w in where:
+        r = [int(v) for v in _vals(rng, (n,), zero_free=True)]
+        for j in w or ():
+            r[j] = 0
+        rows.append(r)
+    return rows
+
+
+@functools.lru_cache(maxsize=None)
+def _batch_inv_case(n):
+    """The rows of one length and `jax_gl.batch_inv` of them (both tile
+    layouts below take the same rows)."""
+    x = np.array(_rows_with_zeros(n, np.random.default_rng(n), 8),
+                 dtype=np.uint64)
+    with jax.disable_jit():
+        return x, J.from_gf(J.batch_inv(J.to_gf(x), axis=-1))
+
+
+@pytest.mark.parametrize("threads,items", [(4, 2), (2, 4)])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 17, 64])
+def test_k2_batch_inv_kernel_algebra_matches_jax(n, threads, items):
+    """The three launches of gl_batch_inv, emulated at a tile of 8, give
+    `jax_gl.batch_inv`'s values: the inverses, and a row with a zero
+    anywhere all zero (its product is 0, and so is 0^(p-2))."""
+    x, want = _batch_inv_case(n)
+    got = np.array([_emulate_batch_inv([int(v) for v in r], threads, items)
+                    for r in x], dtype=np.uint64)
+    assert np.array_equal(got, want)
+    assert np.array_equal(gl.to_u64(gl.batch_inv_plain(_t(x))), want)
+    assert not got[1:].any() and got[0].all()
+
+
+def _emulate_chained_scan(row, tile, op, identity, prefix_known, window=4):
+    """gl_scan on one row: each tile's aggregate, then, tile by tile, the
+    look-back: the statuses of its predecessors, nearest first, `window` at
+    a time, folded until an inclusive prefix (the row's first tile always
+    publishes one); a predecessor k > 0 shows its inclusive prefix where
+    `prefix_known(k)`, else only its aggregate."""
+    n = len(row)
+    ntiles = -(-n // tile)
+    x = list(row) + [identity] * (ntiles * tile - n)
+    agg, inclusive, out = [], [], []
+    for k in range(ntiles):
+        t = x[k * tile:(k + 1) * tile]
+        a = identity
+        scanned = []
+        for v in t:
+            a = op(a, v)
+            scanned.append(a)
+        agg.append(a)
+        excl, top, done = identity, k - 1, k == 0
+        while not done:
+            for j in range(top, top - window, -1):
+                if j < 0:
+                    done = True
+                    break
+                is_prefix = j == 0 or prefix_known(j)
+                excl = op(excl, inclusive[j] if is_prefix else agg[j])
+                if is_prefix:
+                    done = True
+                    break
+            top -= window
+        inclusive.append(op(excl, a))
+        out += [op(excl, s) for s in scanned]
+    return out[:n]
+
+
+@pytest.mark.parametrize("n", [1, 8, 9, 33, 64, 100])
+@pytest.mark.parametrize("fn", ["gf_cumprod", "gf_cumsum"])
+def test_k2_chained_scan_combine_matches_jax(fn, n):
+    """Tiles of 8, look-back windows of 4: whichever predecessors show their
+    inclusive prefix (none, all, every third, a seeded draw), the combine
+    gives `jax_gl`'s scan."""
+    rng = np.random.default_rng(100 + n)
+    x = _vals(rng, (3, n))
+    op = _fmul if fn == "gf_cumprod" else (lambda a, b: (a + b) % P)
+    identity = 1 if fn == "gf_cumprod" else 0
+    draw = rng.random(64) < 0.5
+    patterns = [lambda k: False, lambda k: True, lambda k: k % 3 == 0,
+                lambda k: bool(draw[k])]
+    with jax.disable_jit():
+        want = J.from_gf(getattr(J, fn)(J.to_gf(x), axis=-1))
+    for known in patterns:
+        got = np.array([_emulate_chained_scan([int(v) for v in r], 8, op,
+                                              identity, known)
+                        for r in x], dtype=np.uint64)
+        assert np.array_equal(got, want)
 
 
 # ---------------------------------------------------------------------- K3

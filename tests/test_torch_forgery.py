@@ -15,8 +15,8 @@ import test_forgery as original
 from aero_tpu_torch.air.miden import MidenAir, make_public_inputs
 from aero_tpu_torch.field import from_u64
 from aero_tpu_torch.prover import prove
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 CASES = [(cls, name)
          for cls in (original.TestU32Forgeries, original.TestMemoryForgeries,

@@ -375,16 +375,21 @@ def test_pow_kernel_matches_plain(cuda_device, e):
 
 @pytest.mark.parametrize("shape", [(1,), (7,), (2048,), (2049,), (3, 4097),
                                    (4, (1 << 20) - 1), (3, 1 << 20),
-                                   (2, 1 << 23)])
+                                   (2, 1 << 23), (1024, 4097)])
 def test_scan_kernel_matches_plain(cuda_device, shape):
+    """One launch a scan, the chained scan's look-back across 2 048 tiles
+    of 4 096 a row ((2, 2^23)) and over many short rows ((1024, 4097)); 20
+    rounds on fresh inputs, since an ordering race between the tiles shows
+    only now and then, as a wrong value."""
     from aero_tpu_torch.field import gl, gl_cuda
-    x = _felts(np.random.default_rng(len(shape) + shape[-1]), shape,
-               cuda_device)
-    for name in ("gf_cumprod", "gf_cumsum"):
-        gl_cuda.reset_launches()
-        got = getattr(gl, name)(x)
-        assert gl_cuda.LAUNCHES["gl_scan"] >= 1
-        assert torch.equal(got, getattr(gl, name + "_plain")(x))
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    for _ in range(20):
+        x = _felts(rng, shape, cuda_device)
+        for name in ("gf_cumprod", "gf_cumsum"):
+            gl_cuda.reset_launches()
+            got = getattr(gl, name)(x)
+            assert gl_cuda.LAUNCHES["gl_scan"] == 1
+            assert torch.equal(got, getattr(gl, name + "_plain")(x))
     if len(shape) == 2:
         assert torch.equal(gl.gf_cumprod(x, axis=0),
                            gl.gf_cumprod_plain(x, axis=0))
@@ -392,22 +397,64 @@ def test_scan_kernel_matches_plain(cuda_device, shape):
 
 @pytest.mark.parametrize("shape,zero", [((4, (1 << 20) - 1), (2, 12345)),
                                         ((3, 1 << 20), (0, 0)),
-                                        ((3, 9), (1, 8)), ((1,), None)])
+                                        ((3, 9), (1, 8)), ((1,), None),
+                                        ((2, 1 << 23), (1, 4097)),
+                                        ((1024, 4097), (1023, 4096))])
 def test_batch_inv_on_the_card_keeps_the_zero_rule(cuda_device, shape, zero):
     """A zero anywhere in a row makes that row's output all zero; the
-    other rows are the inverses."""
-    from aero_tpu_torch.field import gl
+    other rows are the inverses. One call, three launches."""
+    from aero_tpu_torch.field import gl, gl_cuda
     x = _felts(np.random.default_rng(11), shape, cuda_device)
     x[x == 0] = 5
     if zero is not None:
         x[zero] = 0
+    gl_cuda.reset_launches()
     got = gl.batch_inv(x, axis=-1)
+    assert gl_cuda.LAUNCHES["gl_batch_inv"] == 3
+    assert gl_cuda.LAUNCHES["gl_scan"] == gl_cuda.LAUNCHES["gl_elementwise"] \
+        == 0
     assert torch.equal(got, gl.batch_inv_plain(x, axis=-1))
     if zero is not None:
         assert not bool(got[zero[0]].any())
         others = [r for r in range(shape[0]) if r != zero[0]]
         assert torch.equal(gl.mul(got[others], x[others]),
                            torch.ones_like(x[others]))
+
+
+@pytest.mark.parametrize("at", ["first", "tile_end", "tile_start", "last"])
+def test_batch_inv_kernel_zero_at_tile_edges(cuda_device, at):
+    """A zero at 0, 2047, 2048 (either side of the first tile edge) or
+    n - 1 of one row and none in the others, 20 rounds on fresh inputs;
+    also along the first axis, which is copied to rows first."""
+    from aero_tpu_torch.field import gl, gl_cuda
+    rows, n = 3, 3 * 2048 + 5
+    j = {"first": 0, "tile_end": 2047, "tile_start": 2048,
+         "last": n - 1}[at]
+    rng = np.random.default_rng(j)
+    for _ in range(20):
+        x = _felts(rng, (rows, n), cuda_device)
+        x[x == 0] = 7
+        x[1, j] = 0
+        got = gl.batch_inv(x)
+        assert torch.equal(got, gl.batch_inv_plain(x))
+        assert not bool(got[1].any())
+        assert torch.equal(gl.mul(got[::2], x[::2]),
+                           torch.ones_like(x[::2]))
+    t = x.T.contiguous()
+    gl_cuda.reset_launches()
+    assert torch.equal(gl.batch_inv(t, axis=0), gl.batch_inv_plain(t, axis=0))
+    assert gl_cuda.LAUNCHES["gl_batch_inv"] == 3
+    assert gl_cuda.LAUNCHES["gl_elementwise_copies"] == 1
+
+
+def test_field_wrappers_refuse_a_cpu_tensor(cuda_device):
+    """No fallback: the K2 wrappers take CUDA tensors only."""
+    from aero_tpu_torch.field import gl_cuda
+    cpu = torch.ones(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        gl_cuda.scan(cpu, gl_cuda.MUL)
+    with pytest.raises(ValueError, match="needs a CUDA tensor"):
+        gl_cuda.batch_inv(cpu)
 
 
 @pytest.mark.parametrize("T,B,m", [(3, 4, 512), (112, 46, 4099),
@@ -476,8 +523,8 @@ def test_miden_proof_on_card_equals_cpu_through_the_field_kernels(
                                           grinding_factor=2))
     gl_cuda.reset_launches()
     card = sdk.prove(program, inputs, fast, min_rows=64, device=cuda_device)
-    for name in ("gl_elementwise", "gl_scan", "gl_constraint_merge",
-                 "gl_deep_combine"):
+    for name in ("gl_elementwise", "gl_scan", "gl_batch_inv",
+                 "gl_constraint_merge", "gl_deep_combine"):
         assert gl_cuda.LAUNCHES[name] > 0, name
     cpu = sdk.prove(program, inputs, fast, min_rows=64, device="cpu")
     assert card.native_proof.to_bytes() == cpu.native_proof.to_bytes()

@@ -22,8 +22,8 @@ from aero_tpu.spec.merkle import MerkleTree
 from aero_tpu_torch.field import from_u64
 from aero_tpu_torch.hash import blake2s as TB
 from aero_tpu_torch.hash import blake2s_cuda as TK
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 RNG = np.random.default_rng(7)
 

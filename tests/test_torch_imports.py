@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import aero_tpu_torch
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "aero_tpu_torch")

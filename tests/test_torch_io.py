@@ -25,8 +25,8 @@ from aero_tpu_torch.spec import cairo_sim as TSIM
 from aero_tpu_torch.spec.proof import ProofOptions, load_proof_file
 from aero_tpu_torch.spec.verifier import VerificationError, verify
 from aero_tpu_torch.tools import generate_proof, stark_parser
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")

@@ -12,8 +12,8 @@ from aero_tpu.spec.hashing import hash_elements
 from aero_tpu.spec.merkle import MerkleTree
 from aero_tpu_torch.field import from_u64
 from aero_tpu_torch.merkle import commit_columns
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 P = (1 << 64) - (1 << 32) + 1
 

@@ -21,8 +21,8 @@ from aero_tpu_torch import field as T
 from aero_tpu_torch import ntt as TN
 from aero_tpu_torch.ntt import ntt_mxu as TM
 from aero_tpu_torch.ntt import tables
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 P = F.P
 CPU = torch.device("cpu")

@@ -15,11 +15,10 @@ import inspect
 import pkgutil
 
 import pytest
-import torch
 
 import aero_tpu
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 # (aero_tpu module, name) -> "port module:attribute"
 RENAMED = {

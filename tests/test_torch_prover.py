@@ -16,8 +16,8 @@ from aero_tpu_torch.air import fib as TF
 from aero_tpu_torch.field import from_u64, to_u64
 from aero_tpu_torch.prover import STAGES, prove, prove_resumable
 from aero_tpu_torch.prover import prover as prover_mod
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 OPTS = ProofOptions(num_queries=27, blowup_factor=8, grinding_factor=8,
                     fri_folding_factor=8, fri_max_remainder_size=256)

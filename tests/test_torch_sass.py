@@ -7,6 +7,7 @@ The real listing exists only where the kernels are built, on the card.
 import pytest
 
 from aero_tpu_torch import _sass
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
 LISTING = """
 Fatbin elf code:

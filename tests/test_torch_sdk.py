@@ -22,8 +22,8 @@ from aero_tpu_torch.sdk import server as port_server
 from aero_tpu_torch.sdk.pb import aero_pb2 as pb
 from aero_tpu_torch.spec import proof as TPR
 from aero_tpu_torch.spec.verifier import VerificationError, verify
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 FAST = TPR.ProofOptions(num_queries=7, blowup_factor=8, grinding_factor=2)
 ADVICE_PROGRAM = """

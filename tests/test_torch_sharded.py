@@ -29,8 +29,8 @@ from aero_tpu_torch.parallel.mesh import run_ranks, split_blocks
 from aero_tpu_torch.prover import prover as prover_mod
 from aero_tpu_torch.prover.fri import fold_evals
 from aero_tpu_torch.spec.proof import ProofOptions
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 P = T.P

@@ -29,8 +29,8 @@ from aero_tpu_torch.spec import merkle as TM
 from aero_tpu_torch.spec import polys as TP
 from aero_tpu_torch.spec import proof as TPR
 from aero_tpu_torch.spec import verifier as TV
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "fib.bin")
 

@@ -12,8 +12,8 @@ import torch
 
 from aero_tpu_torch.parallel.dryrun import GOLDEN_PATH
 from aero_tpu_torch.tools import check_constraints, regen_dryrun_golden
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,8 +19,8 @@ from aero_tpu.vm import stdlib as JS
 from aero_tpu_torch.vm import mast as TMAST
 from aero_tpu_torch.vm import rescue as TR
 from aero_tpu_torch.vm import stdlib as TS
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
-torch.set_num_threads(1)   # one thread per xdist worker: no oversubscription
 
 A64 = 0xDEADBEEF_CAFEBABE
 B64 = 0x01234567_89ABCDEF
