@@ -3,6 +3,8 @@
 `nvcc` compiles every `csrc/*.cu` into one shared library with a plain C
 interface under `build/aero_tpu_torch/` at the root of the checkout, named
 by a hash of the sources, so an edited source is rebuilt at its next use.
+Each source compiles in its own `nvcc` process, all started at once, and
+one more links them.
 The library is loaded with ctypes: each entry point takes device pointers,
 sizes and the CUDA stream, launches on that stream and returns
 `cudaGetLastError()`, which `launch` turns into an exception.
@@ -21,11 +23,15 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
-_CSRC = _PKG / "csrc"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "aero_tpu_torch"
 
+# the AIRs with a generated kernel K5: one committed csrc/air_<name>.cu each
+FRAG_EVAL_AIRS = tuple(sorted(p.stem[len("air_"):]
+                              for p in CSRC.glob("air_*.cu")))
+
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -50,13 +56,18 @@ SIGNATURES = {
     "gl_constraint_merge": [_P] * 6 + [_I32, _I32, _I64, _P],
     "gl_deep_combine": [_P, _I64, _I32] * 3 + [_P] * 7 + [_I64] + [_P] * 4
                        + [_I64, _P],
+    # csrc/air_<name>.cu, generated (air/codegen.py): FRAG_EVAL_PARAMS of
+    # csrc/frag_eval.cuh
+    **{f"{name}_frag_eval": [_P, _I64] * 4 + [_P] * 6
+       + [_I64, _P, _I64, _P, _I32, _P, _I64, _I32, _P]
+       for name in FRAG_EVAL_AIRS},
 }
 
 _lib = None
 
 
 def _sources():
-    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -84,14 +95,33 @@ def build() -> Path:
     out = library_path()
     if out.exists():
         return out
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(_CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
+    objs = Path(f"{tmp}.o")
+    objs.mkdir(exist_ok=True)
+    try:
+        jobs = [(src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+             str(objs / f"{src.stem}.o")], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+            for src in sorted(CSRC.glob("*.cu"))]
+        failed = []
+        for src, job in jobs:
+            _, err = job.communicate()
+            if job.returncode != 0:
+                failed.append(f"{src.name} ({job.returncode}):\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *sorted(str(o) for o in objs.glob("*.o"))],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     return out
 
 

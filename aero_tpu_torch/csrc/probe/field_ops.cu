@@ -1,0 +1,44 @@
+// The machine code of one Goldilocks field op, for the bounds that count
+// the field ops a function needs (chip_smoke.py: K5, the scan and the batch
+// inversion). Kernel probe_<op>_<operands> applies one op of
+// goldilocks.cuh kOps times, straight-line, to kValues values held in
+// registers, between the same loads and stores as probe_none, which copies
+// in to out and applies none; (its instructions - probe_none's) / kOps are
+// one op's, pipe by pipe, with no loop, address or memory instruction among
+// them. "vv": both
+// operands vary; "vc": the second is a constant, as where a traced program
+// adds or multiplies by one.
+//
+// chip_smoke.py builds this file into a cubin of its own and reads its SASS;
+// it is not part of the kernel library and is never launched.
+#include "../goldilocks.cuh"
+
+constexpr int kValues = 8;
+constexpr int kOps = 64;
+
+#define FIELD_OP_PROBE(NAME, EXPR)                                          \
+  extern "C" __global__ void NAME(const u64* in, u64* out) {               \
+    const long long base =                                                  \
+        (long long)blockIdx.x * blockDim.x * kValues + threadIdx.x;         \
+    u64 v[kValues];                                                         \
+    _Pragma("unroll") for (int i = 0; i < kValues; ++i)                     \
+        v[i] = in[base + i * blockDim.x];                                   \
+    _Pragma("unroll") for (int r = 0; r < kOps; ++r) {                      \
+      const u64 a = v[r % kValues];                                         \
+      const u64 b = v[(r + 3) % kValues];                                   \
+      const u64 c = 0x9E3779B97F4A7C15ULL + r;                              \
+      (void)b;                                                              \
+      (void)c;                                                              \
+      v[r % kValues] = EXPR;                                                \
+    }                                                                       \
+    _Pragma("unroll") for (int i = 0; i < kValues; ++i)                     \
+        out[base + i * blockDim.x] = v[i];                                  \
+  }
+
+FIELD_OP_PROBE(probe_none, a)
+FIELD_OP_PROBE(probe_add_vv, gl_add(a, b))
+FIELD_OP_PROBE(probe_add_vc, gl_add(a, c))
+FIELD_OP_PROBE(probe_sub_vv, gl_sub(a, b))
+FIELD_OP_PROBE(probe_sub_vc, gl_sub(a, c))
+FIELD_OP_PROBE(probe_mul_vv, gl_mul(a, b))
+FIELD_OP_PROBE(probe_mul_vc, gl_mul(a, c))

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 
 from . import gl_cuda
+from .sym import Sym, SymGraph
+from . import sym
 
 P = (1 << 64) - (1 << 32) + 1
 EPSILON = (1 << 32) - 1            # 2^64 mod p
@@ -53,7 +55,10 @@ def as_i64(v: int) -> int:
 def scalar(v: int, device) -> torch.Tensor:
     """0-d field element (broadcasts against any field tensor). Made by a
     fill, not a host copy: a pageable host-to-device copy would stall the
-    host until the stream drains."""
+    host until the stream drains. On a symbolic device (`sym.SymGraph`) a
+    constant node, or the rand node `v` itself."""
+    if type(device) is SymGraph:
+        return sym.scalar(v, device)
     return torch.full((), as_i64(int(v)), dtype=torch.int64, device=device)
 
 
@@ -77,11 +82,15 @@ def from_limbs(lo, hi, device) -> torch.Tensor:
 
 
 def gf_full(shape, value: int, device) -> torch.Tensor:
+    if type(device) is SymGraph:
+        return device.const(value)
     return torch.full(tuple(shape), as_i64(value), dtype=torch.int64,
                       device=device)
 
 
 def gf_zeros(shape, device) -> torch.Tensor:
+    if type(device) is SymGraph:
+        return device.const(0)
     return torch.zeros(tuple(shape), dtype=torch.int64, device=device)
 
 
@@ -173,27 +182,36 @@ def inv_plain(a: torch.Tensor) -> torch.Tensor:
 # The ops below take a CUDA tensor to kernel K1 (`gl_cuda`, csrc/field.cu):
 # one launch an op, operands read as they lie (a 0-d scalar from device
 # memory, a broadcast or a strided view through the kernel's indexing).
-# A CPU tensor takes the plain version above.
+# A CPU tensor takes the plain version above. A symbolic operand (`sym.Sym`,
+# an AIR under `air.symbolic.trace`) records a node instead.
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if type(a) is Sym or type(b) is Sym:
+        return sym.add(a, b)
     if gl_cuda.on_cuda(a, b):
         return gl_cuda.elementwise(a, b, gl_cuda.ADD)
     return add_plain(a, b)
 
 
 def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if type(a) is Sym or type(b) is Sym:
+        return sym.sub(a, b)
     if gl_cuda.on_cuda(a, b):
         return gl_cuda.elementwise(a, b, gl_cuda.SUB)
     return sub_plain(a, b)
 
 
 def neg(a: torch.Tensor) -> torch.Tensor:
+    if type(a) is Sym:
+        return sym.neg(a)
     if gl_cuda.on_cuda(a):
         return sub(torch.zeros((), dtype=torch.int64, device=a.device), a)
     return neg_plain(a)
 
 
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    if type(a) is Sym or type(b) is Sym:
+        return sym.mul(a, b)
     if gl_cuda.on_cuda(a, b):
         return gl_cuda.elementwise(a, b, gl_cuda.MUL)
     return mul_plain(a, b)

@@ -16,7 +16,11 @@ counterpart:
   constraint evaluations (the merge of `jax.jit(frag_fn)`,
   `aero_tpu/prover/prover.py:407-429`);
 - K4 `gl_deep_combine`: one fragment's DEEP quotient from its LDE rows
-  (`_deep_core_jit`, `prover.py:556-589`).
+  (`_deep_core_jit`, `prover.py:556-589`);
+- K5 `<air>_frag_eval`: one fragment's constraint evaluation and merge in
+  one pass, a kernel generated for each AIR class from its own constraints
+  (`air/codegen.py`, `csrc/frag_eval.cuh`): the whole of
+  `jax.jit(frag_fn)`, `prover.py:407-446`.
 
 The wrappers here take CUDA tensors only; `field/gl.py` and
 `prover/prover.py` send a CPU tensor to the plain versions beside them
@@ -37,6 +41,7 @@ from .. import _build
 
 LAUNCHES = {"gl_elementwise": 0, "gl_scan": 0, "gl_batch_inv": 0,
             "gl_constraint_merge": 0, "gl_deep_combine": 0,
+            **{f"{n}_frag_eval": 0 for n in _build.FRAG_EVAL_AIRS},
             "gl_elementwise_copies": 0}
 
 ADD, SUB, MUL, POW = 0, 1, 2, 3          # csrc/field.cu `Op`
@@ -143,12 +148,18 @@ def elementwise(a: torch.Tensor, b: torch.Tensor, op: int) -> torch.Tensor:
     return out
 
 
-def power(a: torch.Tensor, e: int) -> torch.Tensor:
+def power(a: torch.Tensor, e: int,
+          out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """a^e mod p for a host exponent 0 <= e < 2^64 (a^0 is 1), square and
-    multiply in the kernel: one launch of K1."""
+    multiply in the kernel: one launch of K1, into `out` (contiguous, of
+    a's shape) when one is given."""
     if not 0 <= e < 1 << 64:
         raise ValueError(f"power: exponent {e} outside [0, 2^64)")
-    out = torch.empty(a.shape, dtype=torch.int64, device=a.device)
+    if out is None:
+        out = torch.empty(a.shape, dtype=torch.int64, device=a.device)
+    elif out.shape != a.shape or not out.is_contiguous():
+        raise ValueError(f"power: out must be contiguous of shape "
+                         f"{tuple(a.shape)}")
     if out.numel() == 0:
         return out
     keep: list = []
@@ -314,4 +325,58 @@ def deep_combine(main_lde, aux_lde, constraint_lde, x_dom, cur, nxt, ood,
                   *vecs, dp, dld, _row(x_dom, m, keep), lam.data_ptr(),
                   mu.data_ptr(), out.data_ptr(), m, _stream(x_dom))
     LAUNCHES["gl_deep_combine"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------- K5
+
+def _rows_in_place(t: Optional[torch.Tensor], m: int, what: str,
+                   keep: list) -> tuple:
+    """(pointer, row stride) of a (w, m) view read in place; a view whose
+    rows are not contiguous is copied first and counted."""
+    if t is None:
+        return None, 0
+    if t.dim() != 2 or t.shape[1] != m:
+        raise ValueError(f"{what}: needs (w, {m}) rows, got "
+                         f"{tuple(t.shape)}")
+    if t.stride(1) != 1 and m > 1:
+        t = t.contiguous()
+        keep.append(t)
+        LAUNCHES["gl_elementwise_copies"] += 1
+    return t.data_ptr(), t.stride(0)
+
+
+def frag_eval(name: str, frames, rands, cc_t, cc_b, bvals, zt, dinv, xp,
+              idx, n_constraints: int, transitions: bool = False
+              ) -> torch.Tensor:
+    """K5 for AIR `name` over one fragment of m points: `frames` the four
+    (w, m) views main at x, main at x g, aux at x, aux at x g (aux None
+    without an aux segment), read in place at their row stride; `rands`
+    (R,), `cc_t` (T, 2), `cc_b` (B, 2), `bvals` (B,), `zt` (m,), `dinv`
+    (D, m) and `xp` (X, m) rows, `idx` the int32 table of
+    `csrc/frag_eval.cuh` `MergeArgs`. Returns the merged row (m,), or with
+    `transitions` the T constraint values (T, m). One launch."""
+    key = f"{name}_frag_eval"
+    if key not in LAUNCHES:
+        raise ValueError(f"frag_eval: no generated kernel {key}")
+    m = zt.shape[-1]
+    present = [f for f in frames if f is not None]
+    on_cuda(zt, rands, cc_t, cc_b, bvals, dinv, xp, *present)
+    if idx.dtype != torch.int32 or idx.device != zt.device:
+        raise ValueError("frag_eval: idx must be int32 on the card")
+    B = bvals.shape[0]
+    keep: list = []
+    rows = [x for f in frames for x in _rows_in_place(f, m, "frag_eval",
+                                                       keep)]
+    dp, dld = _rows_in_place(dinv, m, "frag_eval", keep)
+    xpp, xld = _rows_in_place(xp, m, "frag_eval", keep)
+    shape = (n_constraints, m) if transitions else (m,)
+    out = torch.empty(shape, dtype=torch.int64, device=zt.device)
+    _build.launch(key, *rows, _dense(rands, rands.numel(), "frag_eval"),
+                  _dense(cc_t, 2 * n_constraints, "frag_eval"),
+                  _dense(cc_b, 2 * B, "frag_eval"),
+                  _dense(bvals, B, "frag_eval"), _row(zt, m, keep), dp, dld,
+                  xpp, xld, _dense(idx, idx.numel(), "frag_eval"), B,
+                  out.data_ptr(), m, int(transitions), _stream(zt))
+    LAUNCHES[key] += 1
     return out

@@ -45,11 +45,12 @@ from ..spec.proof import (FriProof, FriProofLayer, OodFrame, Queries,
                                  StarkProof, felts_to_bytes)
 from ..utils import span
 
+from ..air import generated, symbolic
 from ..air.air import Air
 from ..field import (batch_inv, eval_polys_multi, from_u64, gl_cuda, mul,
                      pow_loop, power_series, scalar, sub, to_u64)
 from ..field.gl import (add_plain, batch_inv_plain, gf_sum_plain, mul_plain,
-                        sub_plain)
+                        pow_loop_plain, sub_plain)
 from ..hash.blake2s_cuda import grind_pow
 from ..merkle import ResidentMerkleTree, commit_columns
 from ..ntt import intt, lde
@@ -155,9 +156,15 @@ def constraint_merge(t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt,
 class ConstraintMerger:
     """The random linear combination of all constraint evaluations over a
     range of the LDE domain, evaluated fragment by fragment: one fragment's
-    temporaries (hundreds of flag and product arrays) bound the peak
-    memory. Constraints are local (nxt = +blowup positions), so the result
-    is that of one evaluation over the whole range."""
+    temporaries bound the peak memory. Constraints are local (nxt =
+    +blowup positions), so the result is that of one evaluation over the
+    whole range.
+
+    On the card, an AIR class with a generated kernel
+    (`air.generated.kernel_for`) takes kernel K5, one launch a fragment;
+    any other AIR, and every AIR on the CPU, takes `merge_inputs` (the
+    AIR's `evaluate_transitions`, one K1 launch a field op on the card)
+    and the merge (K3 on the card, its plain version on the CPU)."""
 
     def __init__(self, air: Air, aux_rand, cc_transition, cc_boundary,
                  domain: tuple, device):
@@ -177,18 +184,25 @@ class ConstraintMerger:
         self.cc_b = from_u64(np.array(cc_boundary, dtype=np.uint64), device)
         self.bvals = _vec([a.value for a in assertions], device)
         self.rands = [int(r) % F.P for r in aux_rand]
+        self._k5 = None
 
     def merge_inputs(self, main_cur, main_nxt, aux_cur, aux_nxt,
                      a0: int) -> MergeInputs:
         """The constraint evaluations and the rows the merge reads for the
         `m_frag` points from position a0 of the range; cur and nxt are
         (width, m_frag) frames."""
-        m_frag = main_cur.shape[-1]
-        sl = slice(a0, a0 + m_frag)
         t_evals = self.air.evaluate_transitions(main_cur, main_nxt, aux_cur,
                                                 aux_nxt, self.rands)
+        return self._merge_rows(t_evals, main_cur, aux_cur, a0, pow_loop)
+
+    def _merge_rows(self, t_evals, main_cur, aux_cur, a0: int,
+                    pow_) -> MergeInputs:
+        """MergeInputs around the constraint values `t_evals`, the x^adj
+        rows raised by `pow_`."""
+        m_frag = main_cur.shape[-1]
+        sl = slice(a0, a0 + m_frag)
         x_frag = self.x_dom[sl]
-        xp = {adj: pow_loop(x_frag, adj)
+        xp = {adj: pow_(x_frag, adj)
               for adj in sorted(set(self.t_adjust) | set(self.b_adjust))}
         return MergeInputs(
             t_evals, [xp[adj] for adj in self.t_adjust], self.cc_t,
@@ -201,9 +215,79 @@ class ConstraintMerger:
     def fragment(self, main_cur, main_nxt, aux_cur, aux_nxt,
                  a0: int) -> torch.Tensor:
         """The merged evaluations of the `m_frag` points from position a0
-        of the range; cur and nxt are (width, m_frag) frames."""
+        of the range; cur and nxt are (width, m_frag) frames. The route is
+        chosen by the device and the AIR's class."""
+        if gl_cuda.on_cuda(main_cur) and generated.kernel_for(self.air):
+            return gl_cuda.frag_eval(*self.k5_inputs(main_cur, main_nxt,
+                                                     aux_cur, aux_nxt, a0))
         return constraint_merge(*self.merge_inputs(main_cur, main_nxt,
                                                    aux_cur, aux_nxt, a0))
+
+    def _k5_static(self, prog: symbolic.Program, device) -> tuple:
+        """What K5 reads that no fragment changes: the rands on the card,
+        the distinct x^adj exponents (each degree class's, then the
+        assertions'), and the index table of `csrc/frag_eval.cuh`."""
+        if self._k5 is None:
+            cls_adj = [None] * len(prog.degrees)
+            for k, c in enumerate(prog.classes):
+                if cls_adj[c] is None:
+                    cls_adj[c] = self.t_adjust[k]
+                elif cls_adj[c] != self.t_adjust[k]:
+                    raise ValueError("frag_eval: constraints of one degree "
+                                     "have different adjustments")
+            adjs = list(dict.fromkeys(cls_adj + list(self.b_adjust)))
+            w = self.air.main_width
+            idx = ([adjs.index(a) for a in cls_adj]
+                   + [adjs.index(a) for a in self.b_adjust]
+                   + [prow for _, _, prow in self.asrt_route]
+                   + [c if is_main else w + c
+                      for is_main, c, _ in self.asrt_route])
+            self._k5 = (_vec(self.rands, device), adjs,
+                        torch.tensor(idx, dtype=torch.int32).to(device))
+        return self._k5
+
+    def k5_inputs(self, main_cur, main_nxt, aux_cur, aux_nxt,
+                  a0: int) -> tuple:
+        """The arguments of `gl_cuda.frag_eval` for one fragment on the
+        card: the frames as they lie, and one x^adj row a distinct
+        exponent (K1's pow). A generated file that the AIR no longer
+        traces to raises."""
+        found = generated.kernel_for(self.air)
+        if found is None:
+            raise ValueError(f"frag_eval: {type(self.air).__name__} has no "
+                             "generated kernel")
+        name, prog = found
+        frames = (main_cur, main_nxt, aux_cur, aux_nxt)
+        widths = (prog.main_width,) * 2 + (prog.aux_width,) * 2
+        if ([0 if f is None else f.shape[0] for f in frames] != list(widths)
+                or len(self.rands) != prog.rands):
+            raise ValueError(f"frag_eval: {name} reads frames of {widths} "
+                             f"rows and {prog.rands} rands")
+        m = main_cur.shape[-1]
+        sl = slice(a0, a0 + m)
+        rands, adjs, idx = self._k5_static(prog, main_cur.device)
+        x_frag = self.x_dom[sl]
+        xp = torch.empty((len(adjs), m), dtype=torch.int64,
+                         device=main_cur.device)
+        for r, adj in enumerate(adjs):
+            gl_cuda.power(x_frag, adj, out=xp[r])
+        return (name, frames, rands, self.cc_t, self.cc_b, self.bvals,
+                self.zt_inv[sl],
+                self.denom_inv[:, sl], xp, idx, len(prog.outputs))
+
+    def fragment_plain(self, main_cur, main_nxt, aux_cur, aux_nxt, a0: int,
+                       transitions: bool = False) -> torch.Tensor:
+        """K5 (`fragment` on the card, or with `transitions` the T
+        constraint values) in plain torch ops alone, on any device: the
+        AIR's traced program interpreted with the plain ops
+        (`symbolic.interpret`), then `constraint_merge_plain`."""
+        prog = symbolic.trace(type(self.air))
+        t_evals = symbolic.interpret(prog, main_cur, main_nxt, aux_cur,
+                                     aux_nxt, self.rands)
+        if transitions:
+            return torch.stack(t_evals)
+        return constraint_merge_plain(*self._merge_rows(
+            t_evals, main_cur, aux_cur, a0, pow_loop_plain))
 
 
 # ------------------------------------------------------------- prover state

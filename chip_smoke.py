@@ -9,12 +9,18 @@ use. It imports the port and `bench_gpu.py` only. Set-up, then nine phases,
 each of which raises on a failed check (so the script exits non-zero):
 
   0. card name, power limit and clocks, torch/CUDA versions, kernel and VM
-     build times, instruction counts read from the kernels' SASS;
+     build times, instruction counts read from the kernels' SASS and those
+     of one field op (`csrc/probe/field_ops.cu`, a cubin of its own);
   1. blake2s kernel vs its plain PyTorch version vs hashlib, and the PoW
      grind vs a host scan, at 2^16 leaves and at the shapes the 2^20-row
      proof launches (72 x 2^23 and 9 x 2^23 leaves, a 2^23 -> 2^22 level);
   2. NTT kernel vs its plain versions, round trips, a coset LDE, and the
-     72 x 2^23 transform of the 2^20-row proof;
+     72 x 2^23 transform of the 2^20-row proof; 2b: the field kernels K1-K5
+     (`csrc/field.cu`, and K5 generated from MidenAir's constraints,
+     `csrc/air_miden.cu`) vs their plain versions at the 2^20-row proof's
+     shapes, each timed beside its bound; K3 and K5 on that proof's
+     fragment 0, K5 also against the eager path (K1 a field op, then K3),
+     with its registers and spills;
   3. the golden-parameter Miden proof (fib(10), 1024 rows, default
      options) through `aero_tpu_torch.sdk.prove` on the card: its sha256
      must equal the committed `aero_tpu` digest, and it must verify; then
@@ -39,7 +45,8 @@ each of which raises on a failed check (so the script exits non-zero):
      and reshape real), and world 4 as four processes sharing the card with
      the exchanges staged through pinned host memory and gloo, asked for by
      name (`exchange="host"`). First each kernel is held against its plain
-     version at every shape the 2^18-row runs hand it. Prints the roots,
+     version at every shape the 2^18-row runs hand it (K5 on fragments of
+     2^20 and 2^19 points of a rank's block). Prints the roots,
      each rank's seconds per stage, the bytes each kind of exchange moved
      and the launches per kernel; a mismatch or a dead rank raises.
   8. the int8 tensor-core 4-step NTT (`ntt/ntt_mxu.py`; `torch._int_mm`, no
@@ -74,7 +81,9 @@ right after it. Each kernel's bound is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its instructions (SASS
 counts per butterfly or compress, by pipe, times the work of the call) over
 what 132 SMs take at the card's maximum SM clock: 64 integer-ALU lanes, 64
-multiply-add lanes and 128 scheduler slots each. The third-to-last line is
+multiply-add lanes and 128 scheduler slots each. Where a bound counts the
+field ops a function needs (K5, the scan, the batch inversion), each op is
+priced at its own straight-line count, read from the field-op probe. The third-to-last line is
 a JSON object with one entry per kernel of the proof path; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -133,16 +142,17 @@ FIELD_REPLACES = {
                         "no Pallas kernel: _deep_core_jit "
                         "(prover.py:556-589)"),
 }
-# what --profile prints beside its own figures for the same 2^20-row
-# proof: earlier builds' numbers, copied from PERF.md section 5, not measured
-# by the run that prints them
-PREVIOUS_PROFILE = {
-    "source": "PERF.md section 5",
-    "field algebra as int64 torch ops": {"device_launches": 742012},
-    "K2 as two-pass scans under a composite batch_inv": {
-        "device_launches": 13813, "device_kernel_seconds": 0.181,
-        "idle_share": "0.77-0.84"},
-}
+# kernel K5: generated for each AIR class (aero_tpu_torch/air/codegen.py)
+K5_SRC = "aero_tpu_torch/csrc/air_miden.cu"
+K5_REPLACES = ("aero_tpu/prover/prover.py:407",
+               "no Pallas kernel: XLA's fusion of jax.jit(frag_fn) "
+               "(prover.py:407-446), MidenAir's 112 transition constraints "
+               "and 46 assertions merged in one pass; generated from "
+               "MidenAir.evaluate_transitions (csrc/air_miden_transitions."
+               "cuh, csrc/frag_eval.cuh)")
+K3_OFF_PATH = ("since PR 8 not on the main path: K5 evaluates and merges a "
+               "MidenAir fragment in one launch; K3 stays the merge of an "
+               "AIR without a generated kernel and K5's on-card cross-check")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SMS = 132                      # streaming multiprocessors of an H100 SXM
 LOG_LDE = 23                   # LDE domain of the 2^20-row proof
@@ -236,7 +246,47 @@ def record(kernels, name, shape, err, ms, plain_ms, nbytes, units, per_unit,
                              library_ms=None)
 
 
-def read_sass_counts(lib) -> dict:
+PROBE_SRC = "aero_tpu_torch/csrc/probe/field_ops.cu"
+PROBE_OPS = 64                 # csrc/probe/field_ops.cu kOps
+
+
+def start_probe_build():
+    """(nvcc on the field-op probe, its cubin): started before the kernel
+    library's build, so both compile at once."""
+    from aero_tpu_torch import _build
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "field_ops_probe.cubin"
+    job = subprocess.Popen(
+        [_build._nvcc(), "-cubin", "-gencode", "arch=compute_90a,code=sm_90a",
+         "-std=c++17", "-O3", "-o", str(out), os.path.join(HERE, PROBE_SRC)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return job, out
+
+
+def field_op_counts(job, cubin) -> dict:
+    """Instructions of one field op by pipe, add / sub / mul with two
+    varying operands ("vv") or a constant second one ("vc"): each probe
+    kernel's count less probe_none's, over its PROBE_OPS ops."""
+    from aero_tpu_torch import _sass
+    _, err = job.communicate()
+    check(job.returncode == 0, f"nvcc builds {PROBE_SRC}: {err}")
+    fns = _sass.parse_functions(_sass.dump_sass(cubin))
+    base = _sass.count_instructions(fns["probe_none"])
+    out = {}
+    for op in ("add", "sub", "mul"):
+        for operands in ("vv", "vc"):
+            c = _sass.count_instructions(fns[f"probe_{op}_{operands}"])
+            log(f"[set-up] probe_{op}_{operands}: {c}; probe_none: {base}")
+            d = _sass.Counts(*((getattr(c, f) - getattr(base, f)) / PROBE_OPS
+                               for f in ("alu", "fma", "uniform", "memory",
+                                         "control")), 0)
+            check(d.memory == 0 and d.alu > 0,
+                  f"the {op} probe adds arithmetic only")
+            out[f"op_{op}_{operands}"] = d
+    return out
+
+
+def read_sass_counts(lib, probe) -> dict:
     """Instructions per NTT butterfly and per blake2s compress, by pipe,
     read from the SASS of the built library."""
     from aero_tpu_torch import _sass
@@ -256,13 +306,16 @@ def read_sass_counts(lib) -> dict:
     counts = {"butterfly": _sass.butterfly_counts(
                   _sass.find_function(fns, "colntt_kernel")),
               "compress_merge": merge, "compress_leaf": leaf,
-              "compress_grind": grind, **field_sass_counts(fns)}
+              "compress_grind": grind, **field_sass_counts(fns),
+              **field_op_counts(*probe)}
     for k, c in counts.items():
         log(f"[set-up] SASS per {k}: {c.alu:g} ALU, {c.fma:g} multiply-add,"
             f" {c.uniform:g} uniform, {c.memory:g} memory, {c.control:g} "
             f"control instructions; at least {c.sm_clocks():.2f} SM clocks a"
             " thread")
-        check(c.alu > 0 and c.fma > 0, f"SASS counts of {k} > 0")
+        # an add or subtract alone needs no multiply-add lane
+        check(c.alu > 0 and (c.fma > 0 or k.startswith(("op_add", "op_sub"))),
+              f"SASS counts of {k} > 0")
     return counts
 
 
@@ -280,8 +333,9 @@ def inner_loops(body) -> list:
 
 def field_sass_counts(fns) -> dict:
     """Instructions a unit of work of the field kernels (csrc/field.cu):
-    an element of K1's multiply of two full operands (its storing loop,
-    which the compiler may unroll, over the stores in it: one an element)
+    an element of K1's multiply, add and subtract of two full operands (its
+    storing loop, which the compiler may unroll, over the stores in it: one
+    an element)
     and a bit of its exponent loop (the loop with no store); a thread of
     each K2 kernel, its whole code once (the loops over a thread's elements
     are unrolled; the row factors' loops over tile products and the
@@ -348,6 +402,8 @@ def field_sass_counts(fns) -> dict:
     scan, look_back = look_back_apart("chained_scan_kernelILi2E")
     return {
         "k1_mul": pick("elementwise_kernelILi2ELi0ELi0E", 1, storing)[0],
+        "k1_add": pick("elementwise_kernelILi0ELi0ELi0E", 1, storing)[0],
+        "k1_sub": pick("elementwise_kernelILi1ELi0ELi0E", 1, storing)[0],
         "k1_pow_bit": pick("elementwise_kernelILi3ELi0ELi1E", 1, bit_loop)[0],
         "k2_scan": scan, "k2_look_back": look_back,
         "k2_tile_products": whole("tile_products_kernel"),
@@ -623,14 +679,11 @@ def k2_terms(rows: int, n: int, sass) -> tuple:
     on a (rows, n) call. What a function needs: a scan one field
     operation an element; a batch inversion three multiplies an element
     (Montgomery's trick: the prefix products, then two an element on the
-    way back) and one addition-chain inverse a row; a multiply is K1's
-    full x full multiply less its loads and stores. What the kernels
+    way back) and one addition-chain inverse a row; a multiply at its own
+    straight-line count (the field-op probe). What the kernels
     execute: gl_scan's one launch, gl_batch_inv's three."""
-    from aero_tpu_torch import _sass
     from aero_tpu_torch.field.gl_cuda import INV_TILE, SCAN_TILE, tiles
-    m = sass["k1_mul"]
-    mul = _sass.Counts(m.alu, m.fma, m.uniform, 0, m.control,
-                       m.shared_stores)
+    mul = sass["op_mul_vv"]
     need_scan = [(rows * n, mul)]
     need_inv = [(3 * rows * n + INV_CHAIN_MULS * rows, mul)]
     scan_tiles = tiles(rows, n, SCAN_TILE)
@@ -694,7 +747,28 @@ def field_k1(dev, gen, log_n: int, timer, sass, clock_hz, kernels=None):
     log(f"[phase 2b] K1 host time a launch (wrapper, checks, ctypes, no "
         f"synchronize; 2^10 elements, {calls} calls): {host_ms_call * 1e3:.2f}"
         " us")
+    branch_ns = symbolic_branch_ns(small)
+    kernels["gl_elementwise"]["symbolic_branch_ns"] = branch_ns
+    log(f"[phase 2b] the symbolic branch at the top of field.add / sub / mul"
+        f" (two type tests): {branch_ns:.1f} ns a call, "
+        f"{100 * branch_ns * 1e-6 / host_ms_call:.3f} % of the host time a "
+        "launch")
     return err
+
+
+def symbolic_branch_ns(x, calls: int = 1_000_000) -> float:
+    """Host nanoseconds of the test `field/gl.py` makes before every op on
+    two tensors (`type(a) is Sym or type(b) is Sym`), less the loop's."""
+    from aero_tpu_torch.field.sym import Sym
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        if type(x) is Sym or type(x) is Sym:
+            break
+    t1 = time.perf_counter()
+    for _ in range(calls):
+        pass
+    t2 = time.perf_counter()
+    return max(0.0, (t1 - t0) - (t2 - t1)) / calls * 1e9
 
 
 def field_k2(dev, gen, shape, zero_at, timer, sass, clock_hz, kernels=None,
@@ -841,10 +915,10 @@ def field_k4(dev, gen, widths, log_m: int, log_ld: int, timer, sass,
     return err
 
 
-def scale_merge_inputs(dev):
-    """The merge inputs of fragment 0 of the 2^20-row proof (the program of
-    phase 4): the trace and aux commits, the constraint coefficients as the
-    transcript draws them, and the merger's rows for points 0 .. 2^20."""
+def scale_merger(dev):
+    """The merger of the 2^20-row proof (the program of phase 4) and the
+    frames of its fragment 0: the trace and aux commits, the constraint
+    coefficients as the transcript draws them."""
     from aero_tpu_torch.prover import prover as PR
     from aero_tpu_torch.spec import field as F
     prep = bench_gpu._prepare(long_fib_source(((1 << 20) - 64) // 12),
@@ -861,9 +935,153 @@ def scale_merge_inputs(dev):
     merger = PR.ConstraintMerger(air, st.aux_rand, cc_t, cc_b,
                                  PR._ceval_static(air, dev), dev)
     b = air.options.blowup_factor
-    frames = [PR._frag(lde_, a, PR.FRAG) for lde_ in (st.main_lde, st.aux_lde)
-              for a in (0, b)]
-    return merger.merge_inputs(frames[0], frames[1], frames[2], frames[3], 0)
+    frames = tuple(PR._frag(lde_, a, PR.FRAG)
+                   for lde_ in (st.main_lde, st.aux_lde) for a in (0, b))
+    return merger, frames
+
+
+def k5_resources(lib, sass) -> dict:
+    """Registers a thread, stack bytes and spill instructions (local
+    stores and loads in the SASS) of K5's merge kernel for MidenAir, read
+    from the built library; into `sass`, the kernel's own code by unit:
+    "k5_point", its grid-stride loop (one point a trip, the assertion loop
+    once in it), and "k5_assertion", one trip of its assertion loop."""
+    import re
+    from aero_tpu_torch import _sass
+    out = subprocess.run(["cuobjdump", "--dump-resource-usage", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    found = re.search(r"Function (\S*frag_merge_kernelI16MidenTransitions"
+                      r"\S*):\s*REG:(\d+)\s+STACK:(\d+)", out)
+    check(found is not None, "cuobjdump lists K5's merge kernel")
+    body = _sass.find_function(_sass.parse_functions(_sass.dump_sass(lib)),
+                               "frag_merge_kernelI16MidenTransitions")
+    spills = sum(i.op in ("STL", "LDL") for i in body)
+    res = dict(registers=int(found.group(2)),
+               stack_bytes=int(found.group(3)), spill_instructions=spills,
+               instructions=len(body))
+    log(f"[set-up] K5 miden_frag_eval merge kernel: {res['registers']} "
+        f"registers a thread, {res['stack_bytes']} B of stack, {spills} "
+        f"spill instructions (STL/LDL) of {len(body)}")
+    lps = [lp for lp in _sass.loops(body) if len(lp) > 1]
+    point = max(lps, key=len) if lps else body
+    if 2 * len(point) < len(body):
+        log("[set-up] K5's longest loop holds less than half its code: "
+            "the whole kernel stands for a point")
+        point = body
+    inner = [lp for lp in inner_loops(point) if len(lp) < len(point)]
+    sass["k5_point"] = _sass.count_instructions(point)
+    if len(inner) == 1:
+        sass["k5_assertion"] = _sass.count_instructions(inner[0])
+    else:
+        log(f"[set-up] K5's grid-stride loop holds {len(inner)} inner "
+            "loops, not the one assertion loop: its code is counted once "
+            "a point (an undercount)")
+        sass["k5_assertion"] = _sass.Counts(0, 0, 0, 0, 0, 0)
+    return res
+
+
+# the field ops of K5's merge (csrc/frag_eval.cuh) a point, as (op,
+# operands) -> ops per constraint, per degree class, per assertion, once
+K5_MERGE_OPS = {"op_mul_vv": (2, 1, 3, 1), "op_add_vv": (2, 1, 2, 0),
+                "op_sub_vv": (0, 0, 1, 0)}
+
+
+def k5_terms(merger, sass) -> tuple:
+    """(rows read and written, (units, instructions) terms a point of what
+    the function needs, the same of what the kernel executes) for one K5
+    call. What it needs: each field op of the traced program and of the
+    merge at that op's own straight-line count (the field-op probe; an op
+    with a constant operand at the constant probe's); the rows: the frame
+    rows it reads (the traced loads and the asserted columns), zt, the
+    divisor and x^adj rows, once, and the merged row written once. What it
+    executes: its grid-stride loop once and its assertion loop B - 1 more
+    times."""
+    from collections import Counter
+    from aero_tpu_torch.air import generated
+    from aero_tpu_torch.field.sym import ADD, CONST, LOAD, MUL, NEG, SUB
+    _, prog = generated.kernel_for(merger.air)
+    ops = Counter()
+    for n in prog.nodes:
+        if n.kind in (ADD, SUB, MUL):
+            const = any(prog.nodes[a].kind == CONST for a in n.args)
+            ops[f"op_{n.kind}_{'vc' if const else 'vv'}"] += 1
+        elif n.kind == NEG:                     # gl_sub(0, x)
+            ops["op_sub_vc"] += 1
+    T, C, B = len(prog.outputs), len(prog.degrees), len(merger.asrt_route)
+    for op, (per_t, per_c, per_b, once) in K5_MERGE_OPS.items():
+        ops[op] += per_t * T + per_c * C + per_b * B + once
+    need = [(n, sass[op]) for op, n in sorted(ops.items())]
+    run = [(1, sass["k5_point"]), (B - 1, sass["k5_assertion"])]
+    cells = {n.args for n in prog.nodes if n.kind == LOAD}
+    cells |= {("main_cur" if is_main else "aux_cur", c)
+              for is_main, c, _ in merger.asrt_route}
+    rows = (len(cells) + 1 + merger.denom_inv.shape[0]
+            + len(merger._k5[1]) + 1)
+    return rows, need, run, dict(ops)
+
+
+def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
+             what=""):
+    """K5 on one fragment against the eager path (the AIR's own
+    evaluate_transitions, one K1 launch a field op, and K3) and against
+    its plain version (the traced program in the plain ops and
+    constraint_merge_plain), merged rows and transition values; then,
+    with `kernels`, timed beside its bound."""
+    from aero_tpu_torch.field import gl_cuda
+    from aero_tpu_torch.prover import prover as PR
+    gl_cuda.reset_launches()
+    got = merger.fragment(*frames, a0)
+    launched = dict(gl_cuda.LAUNCHES)
+    k5_args = merger.k5_inputs(*frames, a0)
+    pows = len(k5_args[8])
+    check(launched["miden_frag_eval"] == 1
+          and launched["gl_elementwise"] == pows
+          and sum(launched.values()) == 1 + pows,
+          f"K5 {what}: one launch, beside one pow a distinct x^adj")
+    inputs = merger.merge_inputs(*frames, a0)
+    err = max_abs_err(got, PR.constraint_merge(*inputs))
+    t_k5 = gl_cuda.frag_eval(*k5_args, transitions=True)
+    err = max(err, max_abs_err(t_k5, torch.stack(list(inputs.t_evals))))
+    del inputs
+    err = max(err, max_abs_err(got, merger.fragment_plain(*frames, a0)))
+    err = max(err, max_abs_err(t_k5, merger.fragment_plain(
+        *frames, a0, transitions=True)))
+    del t_k5
+    m = frames[0].shape[-1]
+    check(err == 0, f"K5 {what}: kernel == eager K1 + K3 == plain, merged "
+          "and transition values")
+    if kernels is None:
+        return err
+    ms = timer(lambda: gl_cuda.frag_eval(*k5_args), iters=10)
+    whole = timer(lambda: merger.fragment(*frames, a0), iters=10)
+    route_host = host_ms(lambda: merger.fragment(*frames, a0))
+    eager = host_ms(lambda: PR.constraint_merge(
+        *merger.merge_inputs(*frames, a0)))
+    pms = cuda_ms(lambda: merger.fragment_plain(*frames, a0), iters=1)
+    log(f"[phase 2b] K5 miden_frag_eval {what}: kernel {ms:.4f} ms; with "
+        f"its {pows} pow launches {whole:.4f} ms (one fragment through "
+        f"ConstraintMerger.fragment, host clock: {route_host:.3f} ms); "
+        f"eager K1 + K3 {eager:.3f} ms (host clock); plain {pms:.3f} ms; "
+        f"max_abs_err {err}")
+    rows, need, run, ops = k5_terms(merger, sass)
+    per_pipe = {pipe: (sum(u * getattr(c, pipe) for u, c in need),
+                       sum(u * getattr(c, pipe) for u, c in run))
+                for pipe in ("alu", "fma")}
+    log(f"[phase 2b] K5 a point: the function's field ops {ops}; at each "
+        f"op's own count {per_pipe['alu'][0]:g} ALU and "
+        f"{per_pipe['fma'][0]:g} multiply-add instructions; the kernel's "
+        f"own code executes {per_pipe['alu'][1]:g} ALU and "
+        f"{per_pipe['fma'][1]:g} multiply-add (its grid-stride loop once, "
+        "its assertion loop B - 1 more times)")
+    check(all(need_n <= run_n for need_n, run_n in per_pipe.values()),
+          "K5's bound counts no more ALU or multiply-add work than the "
+          "kernel executes")
+    record(kernels, "miden_frag_eval", f"{what}: {m} points, {rows} rows",
+           err, ms, pms, rows * m * 8, [(m * u, c) for u, c in need],
+           None, clock_hz)
+    kernels["miden_frag_eval"].update(eager_k1_k3_ms=eager,
+                                      with_pow_ms=whole)
+    return err
 
 
 def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
@@ -887,12 +1105,18 @@ def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    inputs = scale_merge_inputs(dev)
+    merger, frames = scale_merger(dev)
+    inputs = merger.merge_inputs(*frames, 0)
     log(f"[phase 2b] the 2^20-row proof's fragment 0, through aux_commit "
-        f"and the constraint evaluation: {time.perf_counter() - t0:.3f} s")
+        f"and the eager constraint evaluation: {time.perf_counter() - t0:.3f}"
+        " s")
     field_k3(inputs, timer, sass, clock_hz, kernels,
              "fragment 0 of the 2^20-row proof")
     del inputs
+    torch.cuda.empty_cache()
+    field_k5(merger, frames, 0, timer, sass, clock_hz, kernels,
+             "fragment 0 of the 2^20-row proof")
+    del merger, frames
     torch.cuda.empty_cache()
     field_k4(dev, gen, (72, 9, 8), 20, LOG_LDE, timer, sass, clock_hz,
              kernels)
@@ -933,10 +1157,13 @@ def _verify(res, src: str) -> None:
     verify(proof, pub, air=air)
 
 
+# the kernels of the main path; K3 left it in PR 8 (K5 merges a MidenAir
+# fragment) and keeps its row in the `kernels` line with its launches
 FIELD_KERNELS = ("gl_elementwise", "gl_scan", "gl_batch_inv",
-                 "gl_constraint_merge", "gl_deep_combine")
+                 "gl_deep_combine", "miden_frag_eval")
 PATH_KERNELS = ("gl_colntt", "blake2s_hash_columns", "blake2s_merge_level",
                 "blake2s_grind_pow") + FIELD_KERNELS
+COUNTED_KERNELS = PATH_KERNELS + ("gl_constraint_merge",)
 
 
 def phase_golden(dev):
@@ -959,6 +1186,8 @@ def phase_golden(dev):
     log("[phase 3] golden proof verifies under spec.verifier (air=port air)")
     for name in PATH_KERNELS:
         check(counts[name] > 0, f"{name} launched in the golden proof")
+    check(counts["gl_constraint_merge"] == 0,
+          "the golden proof merges through K5, not K3")
     bench = bench_gpu.bench_proof(device=dev)
     check(bench_gpu.check_golden(bench.once) == digest,
           "bench_proof's proof == the golden digest")
@@ -999,6 +1228,9 @@ def phase_scale(dev, kernels, proof_out):
           "sdk.prove's proof and public inputs == the bench's")
     for name in PATH_KERNELS:
         check(counts[name] > 0, f"{name} launched in the 2^20-row proof")
+    check(counts["gl_constraint_merge"] == 0,
+          "the 2^20-row proof merges through K5, not K3")
+    for name in COUNTED_KERNELS:
         kernels[name]["launches"] = counts[name]
     t0 = time.perf_counter()
     _verify(res, r.prep.src)
@@ -1244,10 +1476,47 @@ def phase_dryrun_shapes(dev, gen) -> None:
                                     None, None, None, what=f"2^{log_m}"))
         worst = max(worst, field_k4(dev, gen, (72, 9, 8), log_m, log_ld,
                                     None, None, None))
+        merger, frames, a0 = dryrun_merger(dev, gen, log_m, log_ld)
+        worst = max(worst, field_k5(merger, frames, a0, None, None, None,
+                                    what=f"2^{log_m} of a block of "
+                                    f"2^{log_ld}"))
+        del merger, frames
         torch.cuda.empty_cache()
     log(f"[phase 7] shapes of every world: K1 at 2^{LOG_DRYRUN_ROWS}, K2 on "
-        f"the aux scans and divisors, K3 and K4 on fragments of 2^20 and "
-        f"2^19 points: kernel == plain, max_abs_err {worst}")
+        f"the aux scans and divisors, K3, K4 and K5 on fragments of 2^20 "
+        f"and 2^19 points: kernel == plain, max_abs_err {worst}")
+
+
+def dryrun_merger(dev, gen, log_m: int, log_ld: int):
+    """A MidenAir merger over one rank's block of 2^log_ld points of the
+    2^LOG_DRYRUN_ROWS-row dry run's domain (the last block), seeded
+    coefficients and rands, and the frames of the block's last fragment of
+    2^log_m points as `parallel.sharded.stage_composition` hands them:
+    views of the block extended by the next block's first points."""
+    from aero_tpu_torch.air.miden import MidenAir, make_public_inputs
+    from aero_tpu_torch.prover import prover as PR
+    from aero_tpu_torch.sdk import DEFAULT_OPTIONS
+    from aero_tpu_torch.vm import execute_full, fibonacci_source, program_hash
+    src = fibonacci_source(10)
+    _, out, ovf = execute_full(src, [0, 1], min_rows=64)
+    pub = make_public_inputs(program_hash(src), [0, 1], out, overflow=ovf)
+    air = MidenAir(1 << LOG_DRYRUN_ROWS, pub, DEFAULT_OPTIONS, program=src)
+    rng = np.random.default_rng(SEED + log_m)
+    air._aux_rand = [int(v) for v in rng.integers(0, 1 << 63, 16)]
+    cc_t = [tuple(int(v) for v in rng.integers(0, 1 << 63, 2))
+            for _ in range(air.num_transition_constraints)]
+    cc_b = [tuple(int(v) for v in rng.integers(0, 1 << 63, 2))
+            for _ in range(air.num_assertions)]
+    m_blk, m_frag, b = 1 << log_ld, 1 << log_m, DEFAULT_OPTIONS.blowup_factor
+    first = (8 << LOG_DRYRUN_ROWS) - m_blk
+    merger = PR.ConstraintMerger(air, air._aux_rand, cc_t, cc_b,
+                                 PR.ceval_domain(air, dev, first, m_blk), dev)
+    main_ext = device_felts((72, m_blk + b), gen, dev)
+    aux_ext = device_felts((9, m_blk + b), gen, dev)
+    a0 = m_blk - m_frag
+    cur, nxt = slice(a0, a0 + m_frag), slice(a0 + b, a0 + b + m_frag)
+    return merger, (main_ext[:, cur], main_ext[:, nxt], aux_ext[:, cur],
+                    aux_ext[:, nxt]), a0
 
 
 def phase_dryrun(dev, gen, kernels):
@@ -1326,7 +1595,9 @@ def phase_dryrun(dev, gen, kernels):
             "start of the ranks")
         check(total["blake2s_grind_pow"] == 0,
               "the dry run has no proof of work and launches no grind")
-        for name in PATH_KERNELS:
+        check(total["gl_constraint_merge"] == 0,
+              "the dry run merges through K5, not K3")
+        for name in COUNTED_KERNELS:
             kernels[name][f"launches_dryrun_world{world}"] = total[name]
     return single["roots"]
 
@@ -1665,19 +1936,19 @@ def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
         one(repeats + 1, True)
     finally:
         gc.callbacks.remove(on_gc)
+    # the profiler's first session of the process: a later one has been
+    # seen to report no device events at all (PR 8's first run)
+    mul_kernels = bench_gpu.mul_launches(device=dev)
+    check(mul_kernels == 1, f"one field.mul is one device kernel, not "
+          f"{mul_kernels}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run = bench_gpu._timed_prove(prep)
     launches, dev_s, rows = bench_gpu._device_kernels(prof)
     check(launches > 0, "torch.profiler saw the device's kernels")
-    mul_kernels = bench_gpu.mul_launches(device=dev)
-    check(mul_kernels == 1, f"one field.mul is one device kernel, not "
-          f"{mul_kernels}")
     log("[profile] under torch.profiler: " + json.dumps({
         "seconds": run.seconds, "device_kernel_seconds": dev_s,
         "device_launches": launches,
-        # not measured here: the same proof's earlier figures
-        "previous": PREVIOUS_PROFILE,
         "device_kernels_a_field_mul": mul_kernels,
         "wrapper_launches": run.launches,
         "idle_share": 1 - dev_s / run.seconds,
@@ -1711,10 +1982,12 @@ def main(argv=None) -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}, python "
         f"{sys.version.split()[0]}")
     t0 = time.perf_counter()
+    probe = start_probe_build()
     lib = _build.build()
     _build.load()
     log(f"[set-up] kernels built in {time.perf_counter() - t0:.3f} s: {lib}")
-    sass = read_sass_counts(lib)
+    sass = read_sass_counts(lib, probe)
+    k5_res = k5_resources(lib, sass)
     # the C++ VM builds itself at its first run; keep that out of phase 3
     from aero_tpu_torch.vm import execute_full, fibonacci_source
     t0 = time.perf_counter()
@@ -1739,7 +2012,11 @@ def main(argv=None) -> int:
                                     replaces=B2S_TPU),
         "blake2s_grind_pow": dict(route="cuda", source=B2S_SRC,
                                   replaces=B2S_TPU),
+        "miden_frag_eval": dict(route="cuda", source=K5_SRC,
+                                replaces=K5_REPLACES[0],
+                                note=K5_REPLACES[1], **k5_res),
     }
+    kernels["gl_constraint_merge"]["note"] += "; " + K3_OFF_PATH
     phase_blake2s(dev, rng, kernels, sass, clock_hz)
     phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz)
     phase_ntt(dev, rng, gen, kernels, sass, clock_hz)
@@ -1763,7 +2040,11 @@ def main(argv=None) -> int:
             "launches_dryrun_world1", "launches_dryrun_world4")
     print(json.dumps({"kernels": [
         {"name": name, **{key: k[key] for key in keys},
-         **{key: k[key] for key in ("host_ms", "note") if key in k}}
+         **{key: k[key] for key in ("host_ms", "symbolic_branch_ns", "note",
+                                    "registers",
+                                    "stack_bytes", "spill_instructions",
+                                    "with_pow_ms", "eager_k1_k3_ms")
+            if key in k}}
         for name, k in kernels.items()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

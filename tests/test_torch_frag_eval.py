@@ -1,0 +1,331 @@
+"""Kernel K5's generated constraint code (`air/symbolic.py`,
+`air/codegen.py`, `csrc/frag_eval.cuh`, `csrc/air_*`) against `aero_tpu`,
+on the CPU. Exact equality throughout.
+
+- the traced program, interpreted with the plain ops, equals `aero_tpu`'s
+  `evaluate_transitions` (all 112 Miden and 3 Fib constraints) on random
+  frames and on frames of a real trace;
+- the committed generated files are what `codegen --check` would write;
+- the committed per-point C++ (`frag_eval.cuh` and the generated headers),
+  compiled with g++ against a host shim, equals `aero_tpu`'s transitions
+  and the merge of its fragment runner on the same frames and
+  coefficients;
+- a generated file whose digest the AIR no longer traces to raises.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from aero_tpu.air import fib as JF
+from aero_tpu.air import miden as JM
+from aero_tpu.field import from_gf, to_gf
+from aero_tpu.field import jax_gl as J
+from aero_tpu.sdk import DEFAULT_OPTIONS
+from aero_tpu.vm import execute_full, fibonacci_source, program_hash
+from aero_tpu_torch.air import codegen, generated, symbolic
+from aero_tpu_torch.air import fib as TF
+from aero_tpu_torch.air import miden as TM
+from aero_tpu_torch.field import gl
+from aero_tpu_torch.ntt import intt, lde
+from aero_tpu_torch.prover import prover as TP
+from aero_tpu_torch.spec.proof import ProofOptions
+from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
+
+P = (1 << 64) - (1 << 32) + 1
+ROWS = 64
+SRC = fibonacci_source(10)
+
+
+def _rand_cols(rng, shape):
+    return rng.integers(0, P, size=shape, dtype=np.uint64)
+
+
+def _fib_trace(n):
+    tr = np.zeros((2, n), dtype=np.uint64)
+    a, b = 1, 2
+    for i in range(n):
+        tr[0, i], tr[1, i] = a, b
+        a, b = (a + b) % P, (a + 2 * b) % P
+    return tr
+
+
+@pytest.fixture(scope="module")
+def airs():
+    """For each AIR: the port's air, the JAX air, a real trace with its aux
+    segment, and seeded rands."""
+    trace, out, ovf = execute_full(SRC, [0, 1], min_rows=ROWS)
+    pub_t = TM.make_public_inputs(program_hash(SRC), [0, 1], out,
+                                  overflow=ovf)
+    pub_j = JM.make_public_inputs(program_hash(SRC), [0, 1], out,
+                                  overflow=ovf)
+    tm = TM.MidenAir(ROWS, pub_t, DEFAULT_OPTIONS, program=SRC)
+    jm = JM.MidenAir(ROWS, pub_j, DEFAULT_OPTIONS, program=SRC)
+    opts = ProofOptions(num_queries=7, blowup_factor=8, grinding_factor=2)
+    ftr = _fib_trace(ROWS)
+    fpub = TF.FibPublicInputs(int(ftr[1, -1]), ROWS)
+    tf = TF.FibAir(ROWS, fpub, opts)
+    jf = JF.FibAir(ROWS, JF.FibPublicInputs(int(ftr[1, -1]), ROWS), opts)
+    rng = np.random.default_rng(8)
+    out = {}
+    for name, tair, jair, tr in (("miden", tm, jm, trace),
+                                 ("fib", tf, jf, ftr)):
+        rands = [int(r) for r in _rand_cols(rng, tair.aux_rands)]
+        tair._aux_rand = jair._aux_rand = rands
+        aux = gl.to_u64(tair.build_aux_trace(gl.from_u64(tr, "cpu"), rands))
+        out[name] = (tair, jair, tr, aux, rands)
+    return out
+
+
+def _frames(kind, tair, trace, aux, rng):
+    """(main_cur, main_nxt, aux_cur, aux_nxt) as uint64 arrays: 32 random
+    points, or every row of the real trace beside its next row."""
+    if kind == "random":
+        return (_rand_cols(rng, (tair.main_width, 32)),
+                _rand_cols(rng, (tair.main_width, 32)),
+                _rand_cols(rng, (tair.aux_width, 32)),
+                _rand_cols(rng, (tair.aux_width, 32)))
+    return (trace, np.roll(trace, -1, axis=1), aux, np.roll(aux, -1, axis=1))
+
+
+def _jax_transitions(jair, frames, rands):
+    with jax.disable_jit():
+        return [from_gf(v) for v in jair.evaluate_transitions(
+            *(to_gf(f) for f in frames), rands)]
+
+
+CASES = [(a, k) for a in ("miden", "fib") for k in ("random", "trace")]
+
+
+@pytest.mark.parametrize("air,kind", CASES)
+def test_traced_program_equals_aero_tpu(airs, air, kind):
+    tair, jair, trace, aux, rands = airs[air]
+    frames = _frames(kind, tair, trace, aux, np.random.default_rng(3))
+    prog = symbolic.trace(type(tair))
+    got = symbolic.interpret(prog, *(gl.from_u64(f, "cpu") for f in frames),
+                             rands)
+    want = _jax_transitions(jair, frames, rands)
+    assert len(got) == len(want) == tair.num_transition_constraints
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert np.array_equal(gl.to_u64(g), w), f"constraint {k}"
+    if kind == "trace":        # a valid trace: zero on every row but the last
+        assert not any(gl.to_u64(g)[:-1].any() for g in got)
+
+
+def test_trace_records_the_expected_program():
+    prog = symbolic.trace(TM.MidenAir)
+    counts = prog.counts()
+    assert len(prog.outputs) == 112 and prog.degrees[0] == 1
+    assert counts["rand"] == 16 and counts["load"] == 134
+    assert counts["mul"] + counts["add"] + counts["sub"] > 1200
+    # operands come before their uses, and the trace is deterministic
+    for i, n in enumerate(prog.nodes):
+        if n.kind in ("add", "sub", "neg", "mul"):
+            assert all(a < i for a in n.args)
+    assert symbolic.trace(TM.MidenAir).digest == prog.digest
+    # the symbolic branch leaves the ops on tensors as they were
+    a = gl.from_u64(np.array([3, P - 1], dtype=np.uint64), "cpu")
+    assert gl.to_u64(gl.add(a, a)).tolist() == [6, P - 2]
+
+
+@pytest.mark.parametrize("air", ["miden", "fib"])
+def test_committed_generated_files_are_current(air):
+    cls = {"miden": TM.MidenAir, "fib": TF.FibAir}[air]
+    for path, text in codegen.generate(cls).items():
+        assert path.read_text() == text, (
+            f"{path.name} differs from `python -m aero_tpu_torch.air.codegen "
+            "--write`")
+    assert codegen.main(["--check"]) == 0
+
+
+SHIM = r"""
+#define __device__
+#define __forceinline__ inline
+static inline unsigned long long __umul64hi(unsigned long long a,
+                                            unsigned long long b) {
+  return (unsigned long long)(((unsigned __int128)a * b) >> 64);
+}
+#include "air_miden_transitions.cuh"
+#include "air_fib_transitions.cuh"
+
+template <class Air>
+static void run(const FrameIn& f, const MergeArgs& a, u64* out,
+                long long m, int mode) {
+  for (long long e = 0; e < m; ++e) {
+    FrameIn in = f;
+    in.e = e;
+    if (mode == 0) out[e] = frag_merge_point<Air>(in, a);
+    else frag_store_point<Air>(in, out, m);
+  }
+}
+
+extern "C" void host_frag_eval(int air, const u64* mc, long long smc,
+    const u64* mn, long long smn, const u64* ac, long long sac,
+    const u64* an, long long san, const u64* rands, const u64* cc_t,
+    const u64* cc_b, const u64* bvals, const u64* zt, const u64* dinv,
+    long long sd, const u64* xp, long long sx, const int* idx, int B,
+    u64* out, long long m, int mode) {
+  const FrameIn f{mc, mn, ac, an, smc, smn, sac, san, rands, 0};
+  const MergeArgs a{cc_t, cc_b, bvals, zt, dinv, sd, xp, sx, idx, B};
+  if (air == 0) run<MidenTransitions>(f, a, out, m, mode);
+  else run<FibTransitions>(f, a, out, m, mode);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """The committed per-point code built for the host with g++."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.fail("g++ is needed to build the host shim")
+    d = tmp_path_factory.mktemp("k5_host")
+    (d / "shim.cpp").write_text(SHIM)
+    subprocess.run([gxx, "-O1", "-std=c++17", "-fPIC", "-shared",
+                    "-I", str(codegen.CSRC), str(d / "shim.cpp"), "-o",
+                    str(d / "shim.so")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(d / "shim.so"))
+    lib.host_frag_eval.restype = None
+    return lib
+
+
+def _ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _host_call(lib, air, frames, rands, merger, prog, x_frag, zt, dinv,
+               transitions):
+    rand_t, adjs, idx = merger._k5_static(prog, "cpu")
+    assert rand_t.tolist() == [gl.as_i64(r) for r in rands]
+    xp = torch.stack([gl.pow_loop_plain(x_frag, a) for a in adjs])
+    m = zt.shape[-1]
+    T = len(prog.outputs)
+    out = torch.empty((T, m) if transitions else (m,), dtype=torch.int64)
+    fr = [f.contiguous() for f in frames]
+    args = []
+    for f in fr:
+        args += [_ptr(f), ctypes.c_longlong(f.stride(0))]
+    keep = (fr, xp, idx, dinv, zt, rand_t)
+    lib.host_frag_eval(
+        ctypes.c_int(0 if air == "miden" else 1), *args, _ptr(rand_t),
+        _ptr(merger.cc_t), _ptr(merger.cc_b), _ptr(merger.bvals), _ptr(zt),
+        _ptr(dinv), ctypes.c_longlong(dinv.stride(0)), _ptr(xp),
+        ctypes.c_longlong(xp.stride(0)), _ptr(idx),
+        ctypes.c_int(merger.bvals.shape[0]), _ptr(out), ctypes.c_longlong(m),
+        ctypes.c_int(int(transitions)))
+    del keep
+    return out
+
+
+def _merger(tair, rands, rng):
+    cc_t = [tuple(int(v) for v in _rand_cols(rng, 2))
+            for _ in range(tair.num_transition_constraints)]
+    cc_b = [tuple(int(v) for v in _rand_cols(rng, 2))
+            for _ in range(tair.num_assertions)]
+    return TP.ConstraintMerger(tair, rands, cc_t, cc_b,
+                               TP.ceval_domain(tair, "cpu"), "cpu")
+
+
+def _jax_merge(jair, merger, frames, rands):
+    """The merge of `aero_tpu`'s fragment runner (prover.py:407-429),
+    in jax_gl ops on the same frames, rows and coefficients."""
+    g = [J.to_gf(gl.to_u64(f)) for f in frames]
+    t_evals = jair.evaluate_transitions(*g, rands)
+    x = J.to_gf(gl.to_u64(merger.x_dom))
+    xp = {adj: J.pow_loop(x, adj)
+          for adj in set(merger.t_adjust) | set(merger.b_adjust)}
+    cc_t, cc_b, bvals, zt, dinv = (J.to_gf(gl.to_u64(t)) for t in (
+        merger.cc_t, merger.cc_b, merger.bvals, merger.zt_inv,
+        merger.denom_inv))
+    merged = J.gf_full(x.shape, 0)
+    for i, (ev, adj) in enumerate(zip(t_evals, merger.t_adjust)):
+        k = J.add(cc_t[i, 0], J.mul(xp[adj], cc_t[i, 1]))
+        merged = J.add(merged, J.mul(J.mul(k, ev), zt))
+    for j, ((is_main, c, prow), adj) in enumerate(zip(merger.asrt_route,
+                                                      merger.b_adjust)):
+        col = g[0][c] if is_main else g[2][c]
+        k = J.add(cc_b[j, 0], J.mul(xp[adj], cc_b[j, 1]))
+        merged = J.add(merged, J.mul(J.mul(k, J.sub(col, bvals[j])),
+                                     dinv[prow]))
+    return J.from_gf(merged)
+
+
+@pytest.mark.parametrize("air,kind", [(a, k) for a in ("miden", "fib")
+                                      for k in ("lde", "random")])
+def test_host_compiled_generated_code_equals_aero_tpu(airs, host_kernel,
+                                                      air, kind):
+    """The whole 512-point LDE domain of the 64-row trace as one fragment
+    (cur and nxt frames the domain and its wrap-around by the blowup), or
+    random frames over the same domain."""
+    tair, jair, trace, aux, rands = airs[air]
+    rng = np.random.default_rng(11)
+    merger = _merger(tair, rands, rng)
+    m = merger.x_dom.shape[-1]
+    if kind == "lde":
+        main_lde = lde(intt(gl.from_u64(trace, "cpu")), 3)
+        aux_lde = lde(intt(gl.from_u64(aux, "cpu")), 3)
+        frames = (TP._frag(main_lde, 0, m), TP._frag(main_lde, 8, m),
+                  TP._frag(aux_lde, 0, m), TP._frag(aux_lde, 8, m))
+    else:
+        frames = tuple(gl.from_u64(f, "cpu") for f in (
+            _rand_cols(rng, (tair.main_width, m)),
+            _rand_cols(rng, (tair.main_width, m)),
+            _rand_cols(rng, (tair.aux_width, m)),
+            _rand_cols(rng, (tair.aux_width, m))))
+    prog = symbolic.trace(type(tair))
+    rows = (merger.x_dom, merger.zt_inv, merger.denom_inv)
+    got_t = _host_call(host_kernel, air, frames, rands, merger, prog, *rows,
+                       transitions=True)
+    got = _host_call(host_kernel, air, frames, rands, merger, prog, *rows,
+                     transitions=False)
+    want_t = _jax_transitions(jair, [gl.to_u64(f) for f in frames], rands)
+    for k, w in enumerate(want_t):
+        assert np.array_equal(gl.to_u64(got_t[k]), w), f"constraint {k}"
+    with jax.disable_jit():
+        want = _jax_merge(jair, merger, frames, rands)
+    assert np.array_equal(gl.to_u64(got), want)
+    # the route on the CPU is K5's plain version: the same values
+    assert torch.equal(merger.fragment(*frames, 0), got)
+    assert torch.equal(torch.stack(tair.evaluate_transitions(
+        *frames, merger.rands)), got_t)
+    assert torch.equal(merger.fragment_plain(*frames, 0), got)
+    assert torch.equal(merger.fragment_plain(*frames, 0, transitions=True),
+                       got_t)
+
+
+@pytest.mark.parametrize("fault", ["edited digest", "other program",
+                                   "missing file"])
+def test_a_stale_generated_file_raises(tmp_path, fault):
+    prog = symbolic.trace(TM.MidenAir)
+    for name in ("miden", "fib"):
+        for path in generated.paths(name):
+            shutil.copy(path, tmp_path / path.name)
+    generated.check_current(TM.MidenAir, prog, csrc=tmp_path)  # committed
+    head, entry = generated.paths("miden", tmp_path)
+    if fault == "edited digest":
+        head.write_text(head.read_text().replace(prog.digest, "0" * 64))
+    elif fault == "other program":
+        prog = symbolic.trace(TF.FibAir)
+    else:
+        entry.unlink()
+    with pytest.raises(RuntimeError, match="stale.*Regenerate it with"):
+        generated.check_current(TM.MidenAir, prog, csrc=tmp_path)
+
+
+def test_route_is_by_the_exact_class(airs):
+    tair = airs["miden"][0]
+    name, prog = generated.kernel_for(tair)
+    assert name == "miden" and prog.digest == generated.header_field(
+        generated.paths("miden")[0], "dag-digest")
+    assert generated.names() == {"aero_tpu_torch.air.miden.MidenAir": "miden",
+                                 "aero_tpu_torch.air.fib.FibAir": "fib"}
+
+    class Edited(TM.MidenAir):
+        pass
+
+    assert generated.kernel_for(object.__new__(Edited)) is None

@@ -524,8 +524,9 @@ def test_miden_proof_on_card_equals_cpu_through_the_field_kernels(
     gl_cuda.reset_launches()
     card = sdk.prove(program, inputs, fast, min_rows=64, device=cuda_device)
     for name in ("gl_elementwise", "gl_scan", "gl_batch_inv",
-                 "gl_constraint_merge", "gl_deep_combine"):
+                 "gl_deep_combine", "miden_frag_eval"):
         assert gl_cuda.LAUNCHES[name] > 0, name
+    assert gl_cuda.LAUNCHES["gl_constraint_merge"] == 0     # K5 merges
     cpu = sdk.prove(program, inputs, fast, min_rows=64, device="cpu")
     assert card.native_proof.to_bytes() == cpu.native_proof.to_bytes()
     a = _felts(np.random.default_rng(0), (1 << 10,), cuda_device)
@@ -533,3 +534,101 @@ def test_miden_proof_on_card_equals_cpu_through_the_field_kernels(
     gl.mul(a, a)
     assert gl_cuda.LAUNCHES == {**{k: 0 for k in gl_cuda.LAUNCHES},
                                 "gl_elementwise": 1}
+
+
+def _k5_merger(air_name, log_rows, device, rng):
+    """A MidenAir or FibAir of 2^log_rows rows with seeded rands and
+    coefficients, and its merger over the whole LDE domain on the card."""
+    from aero_tpu_torch.air import miden as TM
+    from aero_tpu_torch.prover import prover as PR
+    from aero_tpu_torch.sdk import DEFAULT_OPTIONS
+    from aero_tpu_torch.vm import execute_full, fibonacci_source, program_hash
+    n = 1 << log_rows
+    if air_name == "miden":
+        src = fibonacci_source(10)
+        _, out, ovf = execute_full(src, [0, 1], min_rows=64)
+        pub = TM.make_public_inputs(program_hash(src), [0, 1], out,
+                                    overflow=ovf)
+        air = TM.MidenAir(n, pub, DEFAULT_OPTIONS, program=src)
+    else:
+        air = TF.FibAir(n, TF.FibPublicInputs(
+            int(rng.integers(0, P, dtype=np.uint64)), n),
+                        ProofOptions(num_queries=7, blowup_factor=8,
+                                     grinding_factor=2))
+    rands = [int(v) for v in rng.integers(0, P, air.aux_rands, np.uint64)]
+    air._aux_rand = rands
+    cc_t = [tuple(int(v) for v in rng.integers(0, P, 2, np.uint64))
+            for _ in range(air.num_transition_constraints)]
+    cc_b = [tuple(int(v) for v in rng.integers(0, P, 2, np.uint64))
+            for _ in range(air.num_assertions)]
+    return PR.ConstraintMerger(air, rands, cc_t, cc_b,
+                               PR.ceval_domain(air, device), device)
+
+
+@pytest.mark.parametrize("air_name,log_rows,where", [
+    ("miden", 6, "start"), ("miden", 6, "wrap"), ("miden", 6, "zeros"),
+    ("miden", 17, "wrap"), ("fib", 6, "wrap"), ("fib", 6, "zeros"),
+    ("fib", 17, "start")])
+def test_frag_eval_kernel_matches_plain_and_eager(cuda_device, air_name,
+                                                  log_rows, where):
+    """K5 on a fragment of half the domain (the first, or the last, whose
+    nxt frame wraps around and is a copy), 20 times on fresh frames: the
+    merged row equal to the plain version and to the eager path (the
+    AIR's evaluate_transitions, one K1 launch a field op, then K3); the
+    transition values equal to evaluate_transitions op by op. "zeros":
+    every other row of the frames zero."""
+    from aero_tpu_torch.field import gl_cuda
+    from aero_tpu_torch.prover import prover as PR
+    rng = np.random.default_rng(log_rows * 7 + len(where))
+    merger = _k5_merger(air_name, log_rows, cuda_device, rng)
+    air = merger.air
+    m = merger.x_dom.shape[-1]
+    m_frag = m // 2
+    a0 = 0 if where == "start" else m - m_frag
+    for _ in range(20):
+        main = _felts(rng, (air.main_width, m), cuda_device)
+        aux = _felts(rng, (air.aux_width, m), cuda_device)
+        if where == "zeros":
+            main[::2] = 0
+            aux[::2] = 0
+        frames = (PR._frag(main, a0, m_frag), PR._frag(main, a0 + 8, m_frag),
+                  PR._frag(aux, a0, m_frag), PR._frag(aux, a0 + 8, m_frag))
+        gl_cuda.reset_launches()
+        got = merger.fragment(*frames, a0)
+        assert gl_cuda.LAUNCHES[f"{air_name}_frag_eval"] == 1
+        assert gl_cuda.LAUNCHES["gl_constraint_merge"] == 0
+        assert torch.equal(got, merger.fragment_plain(*frames, a0))
+        assert torch.equal(got, PR.constraint_merge(
+            *merger.merge_inputs(*frames, a0)))
+        t_k5 = gl_cuda.frag_eval(*merger.k5_inputs(*frames, a0),
+                                 transitions=True)
+        eager = air.evaluate_transitions(*frames, merger.rands)
+        assert t_k5.shape == (len(eager), m_frag)
+        for k, ev in enumerate(eager):
+            assert torch.equal(t_k5[k], ev), f"constraint {k}"
+
+
+def test_frag_eval_refuses_a_stale_generated_file(cuda_device, monkeypatch):
+    """No fallback: a generated file the AIR no longer traces to raises on
+    the card, and so does an AIR class without a generated kernel asked
+    for K5."""
+    from aero_tpu_torch.air import generated, symbolic
+    from aero_tpu_torch.air import miden as TM
+    from aero_tpu_torch.prover import prover as PR
+    merger = _k5_merger("fib", 6, cuda_device, np.random.default_rng(5))
+    m = merger.x_dom.shape[-1]
+    main = _felts(np.random.default_rng(6), (2, m), cuda_device)
+    aux = _felts(np.random.default_rng(7), (1, m), cuda_device)
+    frames = (main, PR._frag(main, 8, m), aux, PR._frag(aux, 8, m))
+    monkeypatch.setattr(generated, "_current", {})
+    monkeypatch.setattr(generated, "trace",
+                        lambda cls: symbolic.trace(TM.MidenAir))
+    with pytest.raises(RuntimeError, match="stale"):
+        merger.fragment(*frames, 0)
+
+    class Edited(TF.FibAir):
+        pass
+
+    merger.air = object.__new__(Edited)
+    with pytest.raises(ValueError, match="no generated kernel"):
+        merger.k5_inputs(*frames, 0)

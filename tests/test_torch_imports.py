@@ -45,7 +45,8 @@ def test_package_has_the_slice_modules():
               "tools.stark_parser", "tools.demo", "tools.check_constraints",
               "tools.regen_dryrun_golden", "parallel.mesh",
               "parallel.dist_ntt", "parallel.sharded", "parallel.dryrun",
-              "ntt.ntt_mxu", "tools.card_check"):
+              "ntt.ntt_mxu", "tools.card_check", "field.sym",
+              "air.symbolic", "air.codegen", "air.generated"):
         assert "aero_tpu_torch." + m in mods, m
 
 
