@@ -32,6 +32,17 @@ FRAG_EVAL_AIRS = tuple(sorted(p.stem[len("air_"):]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
+# Kernel K5's generated sources (csrc/air_*.cu) go through ptxas at -O1.
+# A point there is some 40 000 instructions of straight-line code whose
+# emission keeps few values live (air/codegen.py); at -O2 and -O3 ptxas
+# moves reads and their addresses far ahead of their uses and spills; at
+# -O1 it keeps close to the emitted order.
+FRAG_EVAL_FLAGS = ["-Xptxas", "-O1"]
+
+
+def _flags(src: Path) -> list:
+    return NVCC_FLAGS + (FRAG_EVAL_FLAGS if src.stem.startswith("air_")
+                         else [])
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -86,7 +97,7 @@ def library_path() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + FRAG_EVAL_FLAGS).encode())
     return BUILD_DIR / f"libaero_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -102,7 +113,7 @@ def build() -> Path:
     objs.mkdir(exist_ok=True)
     try:
         jobs = [(src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+            [nvcc, *_flags(src), "-c", str(src), "-o",
              str(objs / f"{src.stem}.o")], stdout=subprocess.PIPE,
             stderr=subprocess.PIPE, text=True))
             for src in sorted(CSRC.glob("*.cu"))]

@@ -4,9 +4,9 @@
     python -m aero_tpu_torch.air.codegen --check   # exit 1 if one is stale
 
 For each AIR class in `GENERATED`, `air/symbolic.py` traces its
-`evaluate_transitions` into a DAG of field ops, and this module writes it
-out as straight-line C++ over `gl_add`, `gl_sub`, `gl_mul`
-(`csrc/goldilocks.cuh`):
+`evaluate_transitions` into a DAG of field ops, and this module writes the
+statements of its `emission` out as straight-line C++ over `gl_add`,
+`gl_sub`, `gl_mul` (`csrc/goldilocks.cuh`):
 
 - `csrc/air_<name>_transitions.cuh`: a struct with the AIR's sizes and
   `eval(in, out)`, the per-point function: it reads the frame cells and
@@ -17,6 +17,31 @@ out as straight-line C++ over `gl_add`, `gl_sub`, `gl_mul`
   g++;
 - `csrc/air_<name>.cu`: the `extern "C"` entry `<name>_frag_eval` of K5
   for that AIR (`csrc/frag_eval.cuh` holds the kernels).
+
+The emission keeps a point's live set small enough for registers, so the
+kernel runs without spilling. Its rules are fixed (`symbolic.emission`):
+
+- a frame cell or rand is read where it is used, and kept in a register
+  for its next use only when that use comes within
+  `symbolic.REUSE_WINDOW` sites (statements that compute a held value or
+  hand on a constraint). The cells used most (the opcode bits) are used
+  that densely and so stay in registers over their runs of uses; a cell
+  used again far away is read again;
+- a value that is one field op of leaves (frame cells, rands, constants)
+  and has more than one use is not held from its first use to its last:
+  it is computed again from the leaves' new reads once one of them has
+  been read again. While the same reads are held, the statements name
+  its earlier computation, as the compiler would: no statement repeats
+  the op of another on the same operands;
+- every other value is computed once, and the constraints come in a
+  greedy order: next the one whose new values leave the fewest values
+  live (`symbolic._site_order`).
+
+On the card a read is an opaque load (`frag_read` in `csrc/frag_eval.cuh`),
+so the compiler cannot merge two reads of one cell, nor therefore two
+computations from them. The header states what the statements cost: the
+extra ops, the frame and rand reads a point, and the most values they
+hold live at once.
 
 Each file opens with the AIR class it was made from and the digest of the
 traced program. At first use on the card, `generated.kernel_for` traces
@@ -37,7 +62,7 @@ from typing import Dict
 from .fib import FibAir
 from .generated import COMMAND, CSRC, class_key, paths
 from .miden import MidenAir
-from .symbolic import Program, trace
+from .symbolic import REUSE_WINDOW, Emission, Program, emission, trace
 from ..field.sym import ADD, CONST, LOAD, MUL, NEG, RAND, SUB
 
 # AIR class -> the name of its generated files and entry point
@@ -50,7 +75,7 @@ def struct_name(name: str) -> str:
     return name.capitalize() + "Transitions"
 
 
-def _header(prog: Program, air_cls, what: str) -> str:
+def _header(prog: Program, em: Emission, air_cls, what: str) -> str:
     c = prog.counts()
     ops = ", ".join(f"{c.get(k, 0)} {k}" for k in (MUL, ADD, SUB, NEG))
     return (
@@ -62,44 +87,38 @@ def _header(prog: Program, air_cls, what: str) -> str:
         f"{c.get(LOAD, 0)} frame loads, {c.get(RAND, 0)} rands, "
         f"{c.get(CONST, 0)} constants;\n"
         f"// at most {prog.peak_live()} values live at once in this order.\n"
+        f"// emission: {len(em.remat)} values computed at their uses (again "
+        f"after a re-read), reuse window {REUSE_WINDOW} sites;\n"
+        f"// a point: {em.extra_ops} extra ops, {em.frame_reads} frame reads, "
+        f"{em.rand_reads} rand reads; at most {em.peak_live} values live.\n"
         f"// air-class: {class_key(air_cls)}\n"
         f"// dag-digest: {prog.digest}\n")
 
 
-def _operand(prog: Program, i: int) -> str:
-    n = prog.nodes[i]
-    return f"0x{n.args[0]:x}ULL" if n.kind == CONST else f"v{i}"
+def _operand(x) -> str:
+    return f"0x{x:x}ULL" if isinstance(x, int) else x
 
 
-def emit_transitions(prog: Program, air_cls, name: str) -> str:
-    """The per-point header of AIR `name`."""
-    outs: Dict[int, list] = {}
-    for k, o in enumerate(prog.outputs):
-        outs.setdefault(o, []).append(k)
+def emit_transitions(prog: Program, em: Emission, air_cls,
+                     name: str) -> str:
+    """The per-point header of AIR `name`: the statements of `em`."""
     body = []
-    for i, n in enumerate(prog.nodes):
-        if n.kind == CONST:
-            continue
-        if n.kind == LOAD:
-            rhs = f"in.{n.args[0]}({n.args[1]})"
-        elif n.kind == RAND:
-            rhs = f"in.rand({n.args[0]})"
-        elif n.kind == NEG:
-            rhs = f"gl_sub(0ULL, {_operand(prog, n.args[0])})"
+    for kind, val, args in em.steps:
+        if kind == "read":
+            n = prog.nodes[args]
+            src = n.args[0] if n.kind == LOAD else "rand"
+            col = n.args[1] if n.kind == LOAD else n.args[0]
+            body.append(f"    const u64 {val} = in.{src}({col});")
+        elif kind == "put":
+            body.append(f"    out.template put<{args}, {prog.classes[args]}>"
+                        f"({_operand(val)});")
         else:
-            a, b = (_operand(prog, x) for x in n.args)
-            rhs = f"{_OPS[n.kind]}({a}, {b})"
-        body.append(f"    const u64 v{i} = {rhs};")
-        for k in outs.get(i, ()):
-            body.append(f"    out.template put<{k}, {prog.classes[k]}>"
-                        f"(v{i});")
-    consts = [k for k, o in enumerate(prog.outputs)
-              if prog.nodes[o].kind == CONST]
-    for k in consts:        # a constraint that folded to a constant
-        body.append(f"    out.template put<{k}, {prog.classes[k]}>"
-                    f"({_operand(prog, prog.outputs[k])});")
+            a = [_operand(x) for x in args]
+            rhs = (f"gl_sub(0ULL, {a[0]})" if kind == NEG
+                   else f"{_OPS[kind]}({a[0]}, {a[1]})")
+            body.append(f"    const u64 {val} = {rhs};")
     degrees = ", ".join(map(str, prog.degrees))
-    return (_header(prog, air_cls, "the per-point constraint values")
+    return (_header(prog, em, air_cls, "the per-point constraint values")
             + "#pragma once\n\n#include \"frag_eval.cuh\"\n\n"
             f"struct {struct_name(name)} {{\n"
             f"  static constexpr int kConstraints = {len(prog.outputs)};\n"
@@ -116,9 +135,9 @@ def emit_transitions(prog: Program, air_cls, name: str) -> str:
             + "\n".join(body) + "\n  }\n};\n")
 
 
-def emit_kernel(prog: Program, air_cls, name: str) -> str:
+def emit_kernel(prog: Program, em: Emission, air_cls, name: str) -> str:
     """The `extern "C"` entry of K5 for AIR `name`."""
-    return (_header(prog, air_cls, "the entry point") + "\n"
+    return (_header(prog, em, air_cls, "the entry point") + "\n"
             f"#include \"air_{name}_transitions.cuh\"\n\n"
             "// Kernel K5 over one fragment of m points: mode 0 writes the "
             "merged row,\n// mode 1 the (T, m) constraint values "
@@ -132,9 +151,10 @@ def generate(air_cls) -> Dict[Path, str]:
     """path -> text of the generated files of one AIR class."""
     name = GENERATED[air_cls]
     prog = trace(air_cls)
+    em = emission(prog)
     head, entry = paths(name)
-    return {head: emit_transitions(prog, air_cls, name),
-            entry: emit_kernel(prog, air_cls, name)}
+    return {head: emit_transitions(prog, em, air_cls, name),
+            entry: emit_kernel(prog, em, air_cls, name)}
 
 
 def main(argv=None) -> int:

@@ -9,25 +9,63 @@
 // AIR's evaluate_transitions (aero_tpu_torch/air/codegen.py). This header
 // holds what every AIR shares:
 //
-//   FrameIn     the point's frame cells, read in place: row c of a frame
-//               at p[c * stride + e] (an LDE fragment as a view, or the
-//               copy made at the end of the domain);
+//   FrameIn     the point's frame cells and the rands, read where the
+//               generated code uses them: row c of a frame at
+//               p[c * stride + e] (an LDE fragment as a view, or the copy
+//               made at the end of the domain);
 //   MergeOut    folds each constraint value into the merge as it comes:
-//               out = zt * (sum_k c0_k v_k + sum_c x^adj_c sum_{k in c}
-//               c1_k v_k) + sum_j (cb0_j + x^adj_j cb1_j)(col_j - b_j)
-//               dinv_j, which is K3's sum_k (c0_k + x^adj_k c1_k) v_k zt
-//               + ... regrouped by degree class c (exact in the field);
+//               out = zt * sum_k (c0_k + c1_k x^adj_k) v_k + sum_j (cb0_j
+//               + x^adj_j cb1_j)(col_j - b_j) dinv_j, K3's sum, with
+//               x^adj_k the row of constraint k's degree class;
 //   StoreOut    writes the raw constraint values (T, m) instead;
 //
 // and, for the card only, the kernels and their launch. The per-point code
 // compiles on the host as well (define __device__ and __forceinline__
 // away and __umul64hi with unsigned __int128): the CPU tests run the
 // committed text through g++.
+//
+// What bounds K5 on the card is its ALU pipe: about 1 950 field ops a
+// point, each a short dependent chain. To hide the chains the SM needs
+// many warps, so a thread's live set has to fit in few registers without
+// spilling. The generated code sees to that (air/codegen.py): a cell is
+// read again where its next use is far, a value that is one op of leaves
+// is computed again from the new reads, and the constraints come in an
+// order that keeps few values live. This holds only while the compiler
+// cannot merge two reads of one cell: on the card a read is inline PTX.
+// The merge holds one accumulator, and ptxas runs at -O1 on these sources
+// (_build.FRAG_EVAL_FLAGS): at -O3 it moves reads and their addresses
+// far ahead of their uses and spills.
 #pragma once
 
 #include "goldilocks.cuh"
 
 #define GL_FN __device__ __forceinline__
+
+// Word e of row i of rows at `stride` words: base[i * stride + e]. On
+// the card the address and the load are one piece of inline PTX, a
+// relaxed load at block scope, so the compiler neither merges two reads of
+// one word (as it does two ld.global.nc of one address: the value would
+// be held from its first use to its last) nor keeps the addresses it has
+// computed (a chain of row addresses, or a row's address held from one
+// read to the next): each
+// read computes its address anew from `base` and `stride`, kernel
+// parameters, and the point e, the one value every read shares. L1 serves
+// the load. On the host a plain read. i * 8, `stride` and e are below
+// 2^32 (frag_eval_launch checks the strides and the points).
+GL_FN u64 frag_read(const u64* base, unsigned stride, unsigned i,
+                    unsigned e) {
+#ifdef __CUDA_ARCH__
+  u64 v;
+  asm volatile(
+      "{\n\t.reg .u64 a;\n\tmad.wide.u32 a, %2, %3, %1;\n\t"
+      "mad.wide.u32 a, %4, 8, a;\n\t"
+      "ld.relaxed.cta.global.u64 %0, [a];\n\t}"
+      : "=l"(v) : "l"(base), "r"(i * 8u), "r"(stride), "r"(e));
+  return v;
+#else
+  return base[(unsigned long long)i * stride + e];
+#endif
+}
 
 struct FrameIn {
   const u64* mc;        // main trace at x, (main width) rows
@@ -38,11 +76,11 @@ struct FrameIn {
   const u64* rands;     // the aux rands
   long long e;          // the point
 
-  GL_FN u64 main_cur(int c) const { return mc[c * smc + e]; }
-  GL_FN u64 main_nxt(int c) const { return mn[c * smn + e]; }
-  GL_FN u64 aux_cur(int c) const { return ac[c * sac + e]; }
-  GL_FN u64 aux_nxt(int c) const { return an[c * san + e]; }
-  GL_FN u64 rand(int i) const { return rands[i]; }
+  GL_FN u64 main_cur(int c) const { return frag_read(mc, smc, c, e); }
+  GL_FN u64 main_nxt(int c) const { return frag_read(mn, smn, c, e); }
+  GL_FN u64 aux_cur(int c) const { return frag_read(ac, sac, c, e); }
+  GL_FN u64 aux_nxt(int c) const { return frag_read(an, san, c, e); }
+  GL_FN u64 rand(int i) const { return frag_read(rands, 1, i, 0); }
 };
 
 // What the merge reads beside the frame. idx holds, in order: the x^adj
@@ -62,16 +100,23 @@ struct MergeArgs {
   int B;
 };
 
-template <int C>
+// The weight of constraint k, c0_k + c1_k x^adj_k, is made where its
+// value arrives, from its two coefficients and the x^adj row of its degree
+// class, so the whole point holds one accumulator (two registers), where
+// a sum by degree class would hold one a class.
 struct MergeOut {
-  const u64* cc;
-  u64 a0;               // sum_k c0_k v_k
-  u64 a1[C];            // sum_{k in class c} c1_k v_k
+  const u64* cc;        // (T, 2) transition coefficients
+  const u64* xp;        // rows of x^adj, at row stride sx
+  const int* idx;       // the x^adj row of each degree class
+  unsigned sx, e;
+  u64 acc;              // sum_k (c0_k + c1_k x^adj_k) v_k
 
   template <int K, int CLS>
   GL_FN void put(u64 v) {
-    a0 = gl_add(a0, gl_mul(cc[2 * K], v));
-    a1[CLS] = gl_add(a1[CLS], gl_mul(cc[2 * K + 1], v));
+    const u64 w = gl_add(frag_read(cc, 1, 2 * K, 0),
+                         gl_mul(frag_read(cc, 1, 2 * K + 1, 0),
+                                frag_read(xp, sx, idx[CLS], e)));
+    acc = gl_add(acc, gl_mul(w, v));
   }
 };
 
@@ -86,18 +131,10 @@ struct StoreOut {
 // The merged composition value of the point in.e.
 template <class Air>
 GL_FN u64 frag_merge_point(const FrameIn& in, const MergeArgs& a) {
-  MergeOut<Air::kClasses> o;
-  o.cc = a.cc_t;
-  o.a0 = 0;
-#pragma unroll
-  for (int c = 0; c < Air::kClasses; ++c) o.a1[c] = 0;
+  MergeOut o{a.cc_t, a.xp, a.idx, (unsigned)a.sx, (unsigned)in.e, 0};
   Air::eval(in, o);
   const long long e = in.e;
-  u64 t = o.a0;
-#pragma unroll
-  for (int c = 0; c < Air::kClasses; ++c)
-    t = gl_add(t, gl_mul(a.xp[a.idx[c] * a.sx + e], o.a1[c]));
-  u64 acc = gl_mul(t, a.zt[e]);
+  u64 acc = gl_mul(o.acc, frag_read(a.zt, 0, 0, e));
   const int* bx = a.idx + Air::kClasses;
   const int* bd = bx + a.B;
   const int* bc = bd + a.B;
@@ -106,10 +143,12 @@ GL_FN u64 frag_merge_point(const FrameIn& in, const MergeArgs& a) {
     const int c = bc[j];
     const u64 col = c < Air::kMainWidth ? in.main_cur(c)
                                         : in.aux_cur(c - Air::kMainWidth);
-    const u64 k = gl_add(a.cc_b[2 * j],
-                         gl_mul(a.xp[bx[j] * a.sx + e], a.cc_b[2 * j + 1]));
-    acc = gl_add(acc, gl_mul(gl_mul(k, gl_sub(col, a.bvals[j])),
-                             a.dinv[bd[j] * a.sd + e]));
+    const u64 k = gl_add(frag_read(a.cc_b, 1, 2 * j, 0),
+                         gl_mul(frag_read(a.xp, a.sx, bx[j], e),
+                                frag_read(a.cc_b, 1, 2 * j + 1, 0)));
+    acc = gl_add(acc, gl_mul(gl_mul(k, gl_sub(col, frag_read(a.bvals, 1,
+                                                             j, 0))),
+                             frag_read(a.dinv, a.sd, bd[j], e)));
   }
   return acc;
 }
@@ -124,35 +163,28 @@ GL_FN void frag_store_point(const FrameIn& in, u64* out, long long m) {
 #ifdef __CUDACC__
 
 constexpr int kFragThreads = 128;
-// Six blocks an SM cap a thread of the merge kernel at 80 registers. The
-// MidenAir kernel wants more than 255 (85 values live at once in the
-// traced order, two registers each, and the temporaries of a multiply):
-// uncapped it holds 8 warps an SM and waits on its dependent chains; capped
-// it spills to L1 (a few KB a thread) and holds 24.
-constexpr int kFragMinBlocks = 6;
+// Blocks an SM for the merge kernel: the register cap is 65 536 / (this
+// x kFragThreads), 72. ptxas fits the generated MidenAir code in it with
+// no spill, and 28 warps an SM wait on its multiplies' chains in turn
+// (chip_smoke.py reads the registers and fails on a spill).
+constexpr int kFragMinBlocks = 7;
 
-// One point a thread, a grid-stride loop over the fragment.
+// One point a thread. No grid-stride loop: what a loop would keep from
+// one trip to the next (the rands, the coefficients) is read where it is
+// used instead.
 template <class Air>
 __global__ void __launch_bounds__(kFragThreads, kFragMinBlocks)
 frag_merge_kernel(FrameIn in, MergeArgs a, u64* __restrict__ out,
                   long long m) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < m;
-       e += (long long)gridDim.x * blockDim.x) {
-    FrameIn p = in;
-    p.e = e;
-    out[e] = frag_merge_point<Air>(p, a);
-  }
+  in.e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (in.e < m) out[in.e] = frag_merge_point<Air>(in, a);
 }
 
 template <class Air>
 __global__ void __launch_bounds__(kFragThreads)
 frag_store_kernel(FrameIn in, u64* __restrict__ out, long long m) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < m;
-       e += (long long)gridDim.x * blockDim.x) {
-    FrameIn p = in;
-    p.e = e;
-    frag_store_point<Air>(p, out, m);
-  }
+  in.e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (in.e < m) frag_store_point<Air>(in, out, m);
 }
 
 #define FRAG_EVAL_PARAMS                                                   \
@@ -170,11 +202,15 @@ frag_store_kernel(FrameIn in, u64* __restrict__ out, long long m) {
 template <class Air>
 int frag_eval_launch(FRAG_EVAL_PARAMS) {
   if (B < 0 || (mode != 0 && mode != 1)) return (int)cudaErrorInvalidValue;
+  const long long strides[] = {smc, smn, sac, san, sd, sx, m};  // frag_read's
+  for (long long st : strides)
+    if (st < 0 || st >= (1LL << 32)) return (int)cudaErrorInvalidValue;
   if (m <= 0) return (int)cudaSuccess;
   const FrameIn in{(const u64*)mc, (const u64*)mn, (const u64*)ac,
                    (const u64*)an, smc, smn, sac, san, (const u64*)rands, 0};
   const long long blocks = (m + kFragThreads - 1) / kFragThreads;
-  const unsigned grid = (unsigned)(blocks < (1LL << 30) ? blocks : 1LL << 30);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)blocks;
   cudaStream_t s = (cudaStream_t)stream;
   if (mode == 0) {
     const MergeArgs a{(const u64*)cc_t, (const u64*)cc_b, (const u64*)bvals,

@@ -20,7 +20,8 @@ each of which raises on a failed check (so the script exits non-zero):
      `csrc/air_miden.cu`) vs their plain versions at the 2^20-row proof's
      shapes, each timed beside its bound; K3 and K5 on that proof's
      fragment 0, K5 also against the eager path (K1 a field op, then K3),
-     with its registers and spills;
+     with its registers, warps an SM and the words it reads (the set-up
+     fails if K5's merge kernel spills);
   3. the golden-parameter Miden proof (fib(10), 1024 rows, default
      options) through `aero_tpu_torch.sdk.prove` on the card: its sha256
      must equal the committed `aero_tpu` digest, and it must verify; then
@@ -144,6 +145,7 @@ FIELD_REPLACES = {
 }
 # kernel K5: generated for each AIR class (aero_tpu_torch/air/codegen.py)
 K5_SRC = "aero_tpu_torch/csrc/air_miden.cu"
+K5_THREADS = 128               # csrc/frag_eval.cuh kFragThreads
 K5_REPLACES = ("aero_tpu/prover/prover.py:407",
                "no Pallas kernel: XLA's fusion of jax.jit(frag_fn) "
                "(prover.py:407-446), MidenAir's 112 transition constraints "
@@ -941,11 +943,14 @@ def scale_merger(dev):
 
 
 def k5_resources(lib, sass) -> dict:
-    """Registers a thread, stack bytes and spill instructions (local
-    stores and loads in the SASS) of K5's merge kernel for MidenAir, read
-    from the built library; into `sass`, the kernel's own code by unit:
-    "k5_point", its grid-stride loop (one point a trip, the assertion loop
-    once in it), and "k5_assertion", one trip of its assertion loop."""
+    """K5's merge kernel for MidenAir in library `lib`, logged: registers
+    a thread, stack bytes, spill instructions (local stores and loads in
+    the SASS), global loads and instructions, and the blocks and warps an
+    SM those registers leave room for; the run fails on a spill. Into
+    `sass`: "k5_point", the kernel's code (a thread runs one point with no
+    loop around it, so its whole code counts once a point, its assertion
+    loop once in it), and "k5_assertion", one trip of its assertion
+    loop."""
     import re
     from aero_tpu_torch import _sass
     out = subprocess.run(["cuobjdump", "--dump-resource-usage", str(lib)],
@@ -955,69 +960,94 @@ def k5_resources(lib, sass) -> dict:
     check(found is not None, "cuobjdump lists K5's merge kernel")
     body = _sass.find_function(_sass.parse_functions(_sass.dump_sass(lib)),
                                "frag_merge_kernelI16MidenTransitions")
-    spills = sum(i.op in ("STL", "LDL") for i in body)
-    res = dict(registers=int(found.group(2)),
-               stack_bytes=int(found.group(3)), spill_instructions=spills,
-               instructions=len(body))
+    regs = int(found.group(2))
+    # an SM holds 65 536 registers, given out a warp at a time in units of
+    # 256, and at most 16 blocks of 128 threads
+    per_warp = -(-regs * 32 // 256) * 256
+    blocks = min(16, 65536 // (per_warp * K5_THREADS // 32))
+    res = dict(registers=regs, stack_bytes=int(found.group(3)),
+               spill_instructions=sum(i.op in ("STL", "LDL") for i in body),
+               global_loads=sum(i.op == "LDG" for i in body),
+               instructions=len(body), blocks_per_sm=blocks,
+               warps_per_sm=blocks * K5_THREADS // 32)
     log(f"[set-up] K5 miden_frag_eval merge kernel: {res['registers']} "
-        f"registers a thread, {res['stack_bytes']} B of stack, {spills} "
-        f"spill instructions (STL/LDL) of {len(body)}")
-    lps = [lp for lp in _sass.loops(body) if len(lp) > 1]
-    point = max(lps, key=len) if lps else body
-    if 2 * len(point) < len(body):
-        log("[set-up] K5's longest loop holds less than half its code: "
-            "the whole kernel stands for a point")
-        point = body
-    inner = [lp for lp in inner_loops(point) if len(lp) < len(point)]
-    sass["k5_point"] = _sass.count_instructions(point)
+        f"registers a thread, {res['stack_bytes']} B of stack, "
+        f"{res['spill_instructions']} spill instructions (STL/LDL) and "
+        f"{res['global_loads']} global loads of {res['instructions']}; "
+        f"room for {res['blocks_per_sm']} blocks of {K5_THREADS}, "
+        f"{res['warps_per_sm']} warps, an SM")
+    check(res["spill_instructions"] == 0 and res["stack_bytes"] == 0,
+          "K5's merge kernel for MidenAir keeps a point in registers: no "
+          "spill instruction, no stack")
+    sass["k5_point"] = _sass.count_instructions(body)
+    inner = [lp for lp in inner_loops(body) if len(lp) < len(body)]
     if len(inner) == 1:
         sass["k5_assertion"] = _sass.count_instructions(inner[0])
     else:
-        log(f"[set-up] K5's grid-stride loop holds {len(inner)} inner "
-            "loops, not the one assertion loop: its code is counted once "
-            "a point (an undercount)")
+        log("[set-up] K5's merge kernel does not hold exactly one inner "
+            "loop, the assertion loop: its code is counted once a point "
+            "(an undercount)")
         sass["k5_assertion"] = _sass.Counts(0, 0, 0, 0, 0, 0)
     return res
 
 
-# the field ops of K5's merge (csrc/frag_eval.cuh) a point, as (op,
-# operands) -> ops per constraint, per degree class, per assertion, once
-K5_MERGE_OPS = {"op_mul_vv": (2, 1, 3, 1), "op_add_vv": (2, 1, 2, 0),
-                "op_sub_vv": (0, 0, 1, 0)}
+# the field ops the merge needs a point, as (op, operands) -> ops per
+# constraint, per assertion, once: constraint k weighed by c0_k + c1_k
+# x^adj_k and added in, the sum times zt, and an assertion's
+# (cb0_j + x^adj_j cb1_j)(col_j - b_j) dinv_j added in
+K5_MERGE_OPS = {"op_mul_vv": (2, 3, 1), "op_add_vv": (2, 2, 0),
+                "op_sub_vv": (0, 1, 0)}
 
 
 def k5_terms(merger, sass) -> tuple:
     """(rows read and written, (units, instructions) terms a point of what
-    the function needs, the same of what the kernel executes) for one K5
-    call. What it needs: each field op of the traced program and of the
-    merge at that op's own straight-line count (the field-op probe; an op
-    with a constant operand at the constant probe's); the rows: the frame
-    rows it reads (the traced loads and the asserted columns), zt, the
-    divisor and x^adj rows, once, and the merged row written once. What it
-    executes: its grid-stride loop once and its assertion loop B - 1 more
-    times."""
+    the function needs, the same of the field ops the generated code
+    states, the same of what the kernel executes, the field ops, the
+    words the kernel reads a point) for one K5 call. What it needs: each
+    field op of the traced program and of the merge at that op's own
+    straight-line count (the field-op probe; an op with a constant operand
+    at the constant probe's); the rows: the frame rows it reads (the
+    traced loads and the asserted columns), zt, the divisor and x^adj
+    rows, once, and the merged row written once. What the code states:
+    the emission's statements (the traced ops and the values computed
+    again, `symbolic.emission`) and the merge's, priced alike. What it
+    executes: its code once a point (a thread runs one point, with no loop
+    around it) and its assertion loop B - 1 more times. What it reads: the
+    emission's frame and rand reads (cells read again past the reuse
+    window) and the merge's own words."""
     from collections import Counter
-    from aero_tpu_torch.air import generated
-    from aero_tpu_torch.field.sym import ADD, CONST, LOAD, MUL, NEG, SUB
+    from aero_tpu_torch.air import generated, symbolic
+    from aero_tpu_torch.field.sym import CONST, LOAD, NEG, OPS
     _, prog = generated.kernel_for(merger.air)
-    ops = Counter()
-    for n in prog.nodes:
-        if n.kind in (ADD, SUB, MUL):
-            const = any(prog.nodes[a].kind == CONST for a in n.args)
-            ops[f"op_{n.kind}_{'vc' if const else 'vv'}"] += 1
-        elif n.kind == NEG:                     # gl_sub(0, x)
-            ops["op_sub_vc"] += 1
-    T, C, B = len(prog.outputs), len(prog.degrees), len(merger.asrt_route)
-    for op, (per_t, per_c, per_b, once) in K5_MERGE_OPS.items():
-        ops[op] += per_t * T + per_c * C + per_b * B + once
+    em = symbolic.emission(prog)
+
+    def probe(kind, const):           # NEG is gl_sub(0, x)
+        return ("op_sub_vc" if kind == NEG
+                else f"op_{kind}_{'vc' if const else 'vv'}")
+
+    T, B = len(prog.outputs), len(merger.asrt_route)
+    merge = Counter({op: per_t * T + per_b * B + once for op, (
+        per_t, per_b, once) in K5_MERGE_OPS.items()})
+    ops = merge + Counter(
+        probe(n.kind, any(prog.nodes[a].kind == CONST for a in n.args))
+        for n in prog.nodes if n.kind in OPS)
+    stated = merge + Counter(
+        probe(kind, any(isinstance(a, int) for a in args))
+        for kind, _, args in em.steps if kind in OPS)
     need = [(n, sass[op]) for op, n in sorted(ops.items())]
+    emitted = [(n, sass[op]) for op, n in sorted(stated.items())]
     run = [(1, sass["k5_point"]), (B - 1, sass["k5_assertion"])]
     cells = {n.args for n in prog.nodes if n.kind == LOAD}
     cells |= {("main_cur" if is_main else "aux_cur", c)
               for is_main, c, _ in merger.asrt_route}
     rows = (len(cells) + 1 + merger.denom_inv.shape[0]
             + len(merger._k5[1]) + 1)
-    return rows, need, run, dict(ops)
+    # the merge's words: a constraint's c0, c1 and x^adj (MergeOut::put
+    # reads them where the value arrives), zt, and an assertion's two
+    # coefficients, value, x^adj, divisor and column
+    reads = dict(frame=em.frame_reads, rand=em.rand_reads,
+                 merge=3 * T + 1 + 6 * B, cells=len(cells))
+    return rows, need, emitted, run, dict(ops), reads
 
 
 def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
@@ -1063,24 +1093,34 @@ def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
         f"ConstraintMerger.fragment, host clock: {route_host:.3f} ms); "
         f"eager K1 + K3 {eager:.3f} ms (host clock); plain {pms:.3f} ms; "
         f"max_abs_err {err}")
-    rows, need, run, ops = k5_terms(merger, sass)
-    per_pipe = {pipe: (sum(u * getattr(c, pipe) for u, c in need),
-                       sum(u * getattr(c, pipe) for u, c in run))
+    rows, need, emitted, run, ops, reads = k5_terms(merger, sass)
+    per_pipe = {pipe: tuple(sum(u * getattr(c, pipe) for u, c in terms)
+                            for terms in (need, emitted, run))
                 for pipe in ("alu", "fma")}
     log(f"[phase 2b] K5 a point: the function's field ops {ops}; at each "
         f"op's own count {per_pipe['alu'][0]:g} ALU and "
-        f"{per_pipe['fma'][0]:g} multiply-add instructions; the kernel's "
-        f"own code executes {per_pipe['alu'][1]:g} ALU and "
-        f"{per_pipe['fma'][1]:g} multiply-add (its grid-stride loop once, "
-        "its assertion loop B - 1 more times)")
-    check(all(need_n <= run_n for need_n, run_n in per_pipe.values()),
+        f"{per_pipe['fma'][0]:g} multiply-add instructions; the field ops "
+        f"the generated code states (the values computed again too) "
+        f"{per_pipe['alu'][1]:g} ALU and {per_pipe['fma'][1]:g} "
+        f"multiply-add; the kernel's own code executes "
+        f"{per_pipe['alu'][2]:g} ALU and {per_pipe['fma'][2]:g} "
+        "multiply-add (its code once, its assertion loop B - 1 more times)")
+    words = reads["frame"] + reads["rand"] + reads["merge"]
+    log(f"[phase 2b] K5 reads a point {reads['frame']} frame words (cells "
+        f"read again past the reuse window; {reads['cells']} cells), "
+        f"{reads['rand']} rands and {reads['merge']} words of the "
+        f"merge: {words * m * 8} B from L1/L2 a call, "
+        f"{words * m * 8 / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s "
+        f"(the bound counts each row once: {rows * m * 8} B)")
+    check(all(need_n <= run_n for need_n, _, run_n in per_pipe.values()),
           "K5's bound counts no more ALU or multiply-add work than the "
           "kernel executes")
     record(kernels, "miden_frag_eval", f"{what}: {m} points, {rows} rows",
            err, ms, pms, rows * m * 8, [(m * u, c) for u, c in need],
            None, clock_hz)
     kernels["miden_frag_eval"].update(eager_k1_k3_ms=eager,
-                                      with_pow_ms=whole)
+                                      with_pow_ms=whole,
+                                      words_read_per_point=words)
     return err
 
 
@@ -2043,6 +2083,8 @@ def main(argv=None) -> int:
          **{key: k[key] for key in ("host_ms", "symbolic_branch_ns", "note",
                                     "registers",
                                     "stack_bytes", "spill_instructions",
+                                    "global_loads", "blocks_per_sm",
+                                    "warps_per_sm", "words_read_per_point",
                                     "with_pow_ms", "eager_k1_k3_ms")
             if key in k}}
         for name, k in kernels.items()]}))

@@ -5,6 +5,10 @@ on the CPU. Exact equality throughout.
 - the traced program, interpreted with the plain ops, equals `aero_tpu`'s
   `evaluate_transitions` (all 112 Miden and 3 Fib constraints) on random
   frames and on frames of a real trace;
+- the emission K5 runs (`symbolic.emission`: a value that is one op of
+  leaves and has more than one use computed again after a re-read of its
+  leaves, a leaf read again past the reuse window), interpreted with the plain ops, equals
+  `aero_tpu`'s transitions; the generated header states its costs;
 - the committed generated files are what `codegen --check` would write;
 - the committed per-point C++ (`frag_eval.cuh` and the generated headers),
   compiled with g++ against a host shim, equals `aero_tpu`'s transitions
@@ -14,6 +18,7 @@ on the CPU. Exact equality throughout.
 """
 
 import ctypes
+import re
 import shutil
 import subprocess
 
@@ -32,12 +37,14 @@ from aero_tpu_torch.air import codegen, generated, symbolic
 from aero_tpu_torch.air import fib as TF
 from aero_tpu_torch.air import miden as TM
 from aero_tpu_torch.field import gl
+from aero_tpu_torch.field.sym import OPS
 from aero_tpu_torch.ntt import intt, lde
 from aero_tpu_torch.prover import prover as TP
 from aero_tpu_torch.spec.proof import ProofOptions
 from test_torch_worker import port_module  # noqa: F401  one torch thread; releases JAX's programs
 
 P = (1 << 64) - (1 << 32) + 1
+LEAVES = ("load", "rand", "const")
 ROWS = 64
 SRC = fibonacci_source(10)
 
@@ -131,6 +138,133 @@ def test_trace_records_the_expected_program():
     # the symbolic branch leaves the ops on tensors as they were
     a = gl.from_u64(np.array([3, P - 1], dtype=np.uint64), "cpu")
     assert gl.to_u64(gl.add(a, a)).tolist() == [6, P - 2]
+
+
+EMITTED = {"miden": TM.MidenAir, "fib": TF.FibAir}
+
+
+@pytest.mark.parametrize("air", ["miden", "fib"])
+def test_rematerialized_values_are_one_op_of_leaves_used_more_than_once(air):
+    """The emission computes again exactly the values that are one field
+    op of leaves and have more than one use (the readers of a node, and
+    its own constraint if it is an output): at a use, unless the same op
+    of the same reads was computed before. No two statements compute one
+    op of the same operands (up to a commutative op's order), so the
+    compiler has none to merge, and the extra ops are what runs."""
+    prog = symbolic.trace(EMITTED[air])
+    em = symbolic.emission(prog)
+    uses = {i: set() for i in range(len(prog.nodes))}
+    for i, n in enumerate(prog.nodes):
+        if n.kind in OPS:
+            for a in n.args:
+                uses[a].add(i)
+    for o in prog.outputs:
+        uses[o].add(("out", o))
+    leafy = {i for i, n in enumerate(prog.nodes)
+             if n.kind in OPS and all(prog.nodes[a].kind in LEAVES
+                                      for a in n.args)}
+    assert em.remat == {i for i in leafy if len(uses[i]) > 1}
+    assert len(em.remat) == {"miden": 79, "fib": 0}[air]
+    # every remaining op node is computed once, a rematerialized value at
+    # most at each of its uses: the extra ops at most the uses beyond the
+    # first
+    ops = sum(n.kind in OPS for n in prog.nodes)
+    assert 0 <= em.extra_ops <= sum(len(uses[i]) - 1 for i in em.remat)
+    assert sum(k in OPS for k, _, _ in em.steps) == ops + em.extra_ops
+    computed = [(k, tuple(sorted(map(str, a))) if k in ("add", "mul")
+                 else a) for k, name, a in em.steps
+                if k in OPS and name.startswith("t")]
+    assert len(set(computed)) == len(computed)
+    assert {name for k, name, _ in em.steps if k in OPS
+            and name.startswith("v")} == {
+        f"v{i}" for i, n in enumerate(prog.nodes)
+        if n.kind in OPS and i not in em.remat}
+
+
+@pytest.mark.parametrize("air", ["miden", "fib"])
+def test_emission_reads_a_leaf_again_only_past_the_reuse_window(air):
+    """The sites are each held op node once and each other non-constant
+    output once, every held operand before its reader. A frame cell or
+    rand is read at its first use and again at a use more than
+    REUSE_WINDOW sites after the one before; between, the statements name
+    the value of its last read. Every name is defined before it is
+    used."""
+    prog = symbolic.trace(EMITTED[air])
+    em = symbolic.emission(prog)
+    window = symbolic.REUSE_WINDOW
+    held = {i for i, n in enumerate(prog.nodes)
+            if n.kind in OPS and i not in em.remat}
+    outputs = set(prog.outputs)
+    assert sorted(em.sites) == sorted(
+        held | {o for o in outputs if prog.nodes[o].kind != "const"})
+    pos = {s: t for t, s in enumerate(em.sites)}
+    for s in held:
+        assert all(pos[a] < pos[s] for a in prog.nodes[s].args if a in held)
+    prev = {}
+    want_reads = []
+    for t, s in enumerate(em.sites):
+        ops = set(prog.nodes[s].args) if s in held else {s}
+        leaves = set()
+        for a in ops:
+            leaves |= ({b for b in prog.nodes[a].args} if a in em.remat
+                       else {a})
+        for leaf in sorted(x for x in leaves
+                           if prog.nodes[x].kind in ("load", "rand")):
+            if leaf not in prev or t - prev[leaf] > window:
+                want_reads.append(leaf)
+            prev[leaf] = t
+    reads = [a for k, _, a in em.steps if k == "read"]
+    assert sorted(reads) == sorted(want_reads)
+    assert em.frame_reads == sum(prog.nodes[a].kind == "load"
+                                 for a in reads)
+    assert em.rand_reads == len(reads) - em.frame_reads
+    defined = set()
+    for kind, name, args in em.steps:
+        used = [name] if kind == "put" else list(args) if kind in OPS else []
+        assert all(u in defined for u in used if isinstance(u, str))
+        if kind != "put":
+            assert name not in defined
+            defined.add(name)
+    assert sorted(a for k, _, a in em.steps if k == "put") == list(
+        range(len(prog.outputs)))
+
+
+@pytest.mark.parametrize("air,kind", CASES)
+def test_emission_interpreted_equals_aero_tpu(airs, air, kind):
+    """The statements K5 runs (values computed again, cells read again),
+    interpreted with the plain ops, equal aero_tpu's transitions."""
+    tair, jair, trace, aux, rands = airs[air]
+    frames = _frames(kind, tair, trace, aux, np.random.default_rng(4))
+    prog = symbolic.trace(type(tair))
+    got = symbolic.interpret_emission(
+        prog, symbolic.emission(prog),
+        *(gl.from_u64(f, "cpu") for f in frames), rands)
+    want = _jax_transitions(jair, frames, rands)
+    assert len(got) == len(want) == tair.num_transition_constraints
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert np.array_equal(gl.to_u64(g), w), f"constraint {k}"
+
+
+@pytest.mark.parametrize("air", ["miden", "fib"])
+def test_header_states_what_the_emission_costs(air):
+    """The committed header's counts are the generator's: extra ops, frame
+    and rand reads a point, the emission's and the traced order's peaks."""
+    prog = symbolic.trace(EMITTED[air])
+    em = symbolic.emission(prog)
+    head = generated.paths(air)[0].read_text()
+    found = re.search(r"// emission: (\d+) values computed at their uses "
+                      r"\(again after a re-read\), reuse window (\d+) "
+                      r"sites;\n// a point: (\d+) extra "
+                      r"ops, (\d+) frame reads, (\d+) rand reads; at most "
+                      r"(\d+) values live\.", head)
+    assert found is not None
+    assert tuple(map(int, found.groups())) == (
+        len(em.remat), symbolic.REUSE_WINDOW, em.extra_ops, em.frame_reads,
+        em.rand_reads, em.peak_live)
+    assert f"at most {prog.peak_live()} values live at once" in head
+    if air == "miden":          # what the emission is for: a small live set
+        assert prog.peak_live() == 85 and em.peak_live <= 27
+        assert em.extra_ops == 116
 
 
 @pytest.mark.parametrize("air", ["miden", "fib"])

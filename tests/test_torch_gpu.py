@@ -608,6 +608,41 @@ def test_frag_eval_kernel_matches_plain_and_eager(cuda_device, air_name,
             assert torch.equal(t_k5[k], ev), f"constraint {k}"
 
 
+@pytest.mark.parametrize("air_name,log_rows,m_frag,where", [
+    ("miden", 6, 255, "odd"), ("fib", 6, 255, "odd"),
+    ("miden", 6, 129, "wrap"), ("fib", 6, 1, "odd"),
+    ("miden", 18, 1 << 20, "start"), ("miden", 18, 1 << 20, "wrap"),
+    ("fib", 18, 1 << 20, "wrap")])
+def test_frag_eval_kernel_at_odd_and_dry_run_fragments(cuda_device, air_name,
+                                                       log_rows, m_frag,
+                                                       where):
+    """K5 on fragments of an odd number of points (from an odd offset, or
+    the last points of the domain, whose nxt frame wraps), where the last
+    block holds fewer points than threads; and on the fragments of 2^20
+    points of a 2^18-row trace's 2^21-point domain, the dry run's: the
+    merged row and the transition values equal to the plain version."""
+    from aero_tpu_torch.field import gl_cuda
+    from aero_tpu_torch.prover import prover as PR
+    rng = np.random.default_rng(log_rows * 131 + m_frag)
+    merger = _k5_merger(air_name, log_rows, cuda_device, rng)
+    air = merger.air
+    m = merger.x_dom.shape[-1]
+    a0 = {"odd": 3, "start": 0, "wrap": m - m_frag}[where]
+    main = _felts(rng, (air.main_width, m), cuda_device)
+    aux = _felts(rng, (air.aux_width, m), cuda_device)
+    frames = (PR._frag(main, a0, m_frag), PR._frag(main, a0 + 8, m_frag),
+              PR._frag(aux, a0, m_frag), PR._frag(aux, a0 + 8, m_frag))
+    gl_cuda.reset_launches()
+    got = merger.fragment(*frames, a0)
+    assert gl_cuda.LAUNCHES[f"{air_name}_frag_eval"] == 1
+    assert got.shape == (m_frag,)
+    assert torch.equal(got, merger.fragment_plain(*frames, a0))
+    t_k5 = gl_cuda.frag_eval(*merger.k5_inputs(*frames, a0),
+                             transitions=True)
+    assert torch.equal(t_k5, merger.fragment_plain(*frames, a0,
+                                                   transitions=True))
+
+
 def test_frag_eval_refuses_a_stale_generated_file(cuda_device, monkeypatch):
     """No fallback: a generated file the AIR no longer traces to raises on
     the card, and so does an AIR class without a generated kernel asked
