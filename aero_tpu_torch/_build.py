@@ -29,20 +29,24 @@ BUILD_DIR = _PKG.parent / "build" / "aero_tpu_torch"
 # the AIRs with a generated kernel K5: one committed csrc/air_<name>.cu each
 FRAG_EVAL_AIRS = tuple(sorted(p.stem[len("air_"):]
                               for p in CSRC.glob("air_*.cu")))
+# the AIRs with a generated kernel K6: one committed csrc/aux_<name>.cu each
+ROW_EVAL_AIRS = tuple(sorted(p.stem[len("aux_"):]
+                             for p in CSRC.glob("aux_*.cu")))
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
-# Kernel K5's generated sources (csrc/air_*.cu) go through ptxas at -O1.
-# A point there is some 40 000 instructions of straight-line code whose
-# emission keeps few values live (air/codegen.py); at -O2 and -O3 ptxas
-# moves reads and their addresses far ahead of their uses and spills; at
-# -O1 it keeps close to the emitted order.
+# The generated sources of kernels K5 and K6 (csrc/air_*.cu, aux_*.cu) go
+# through ptxas at -O1. A point of K5 is some 40 000 instructions of
+# straight-line code whose emission keeps few values live
+# (air/codegen.py); at -O2 and -O3 ptxas moves reads and their addresses
+# far ahead of their uses and spills; at -O1 it keeps close to the emitted
+# order. K6's rows come from the same emission and take the same flags.
 FRAG_EVAL_FLAGS = ["-Xptxas", "-O1"]
 
 
 def _flags(src: Path) -> list:
-    return NVCC_FLAGS + (FRAG_EVAL_FLAGS if src.stem.startswith("air_")
-                         else [])
+    return NVCC_FLAGS + (FRAG_EVAL_FLAGS
+                         if src.stem.startswith(("air_", "aux_")) else [])
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -67,11 +71,16 @@ SIGNATURES = {
     "gl_constraint_merge": [_P] * 6 + [_I32, _I32, _I64, _P],
     "gl_deep_combine": [_P, _I64, _I32] * 3 + [_P] * 7 + [_I64] + [_P] * 4
                        + [_I64, _P],
+    # csrc/eval_multi.cu
+    "gl_eval_multi": [_P, _I64, _I32] * 4 + [_P, _I32, _P, _P, _I64, _P],
     # csrc/air_<name>.cu, generated (air/codegen.py): FRAG_EVAL_PARAMS of
     # csrc/frag_eval.cuh
     **{f"{name}_frag_eval": [_P, _I64] * 4 + [_P] * 6
        + [_I64, _P, _I64, _P, _I32, _P, _I64, _I32, _P]
        for name in FRAG_EVAL_AIRS},
+    # csrc/aux_<name>.cu, generated: ROW_EVAL_PARAMS of csrc/frag_eval.cuh
+    **{f"{name}_aux_factors": [_P, _I64, _P, _P, _I64, _P]
+       for name in ROW_EVAL_AIRS},
 }
 
 _lib = None

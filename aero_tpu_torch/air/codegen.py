@@ -1,6 +1,6 @@
-"""Generate kernel K5's per-AIR CUDA sources from the AIRs' own constraints.
+"""Generate kernels K5 and K6's per-AIR CUDA sources from the AIRs' own code.
 
-    python -m aero_tpu_torch.air.codegen --write   # (re)write csrc/air_*
+    python -m aero_tpu_torch.air.codegen --write   # (re)write the files
     python -m aero_tpu_torch.air.codegen --check   # exit 1 if one is stale
 
 For each AIR class in `GENERATED`, `air/symbolic.py` traces its
@@ -17,6 +17,19 @@ statements of its `emission` out as straight-line C++ over `gl_add`,
   g++;
 - `csrc/air_<name>.cu`: the `extern "C"` entry `<name>_frag_eval` of K5
   for that AIR (`csrc/frag_eval.cuh` holds the kernels).
+
+For each AIR class in `ROW_GENERATED`, `symbolic.trace_rows` traces the
+function of a row and the next row that its aux build runs (`MidenAir`'s
+`_bus_row_factors`, the bus factors), and this module writes kernel K6:
+
+- `csrc/aux_<name>_factors.cuh`: a struct with `eval(in, out)` over one
+  row, handing output k to `out.put<k>()` (`StoreOut` of
+  `csrc/frag_eval.cuh`, which writes row k of the (outputs, n) result);
+- `csrc/aux_<name>.cu`: the `extern "C"` entry `<name>_aux_factors`, one
+  thread a row, the next row read in place at (i + 1) mod n.
+
+The file names keep K6 out of `_build.FRAG_EVAL_AIRS`'s glob
+(`air_*.cu`); `_build.ROW_EVAL_AIRS` globs `aux_*.cu`.
 
 The emission keeps a point's live set small enough for registers, so the
 kernel runs without spilling. Its rules are fixed (`symbolic.emission`):
@@ -43,13 +56,14 @@ computations from them. The header states what the statements cost: the
 extra ops, the frame and rand reads a point, and the most values they
 hold live at once.
 
-Each file opens with the AIR class it was made from and the digest of the
-traced program. At first use on the card, `generated.kernel_for` traces
-the AIR again and raises if the digest differs: an edit to
-`evaluate_transitions` or `transition_degrees` needs a regeneration before
-the card proves with that AIR again. To generate a kernel for another AIR,
-add its class to `GENERATED` and run `--write`: the build, the launch
-counts and the prover's route follow the committed files.
+Each file opens with the AIR class it was made from (K6's also with the
+function traced) and the digest of the traced program. At first use on
+the card, `generated.kernel_for` (`row_kernel_for`) traces again and
+raises if the digest differs: an edit to `evaluate_transitions`,
+`transition_degrees` or the row function needs a regeneration before the
+card proves with that AIR again. To generate a kernel for another AIR,
+add its class to `GENERATED` (`ROW_GENERATED`) and run `--write`: the
+build, the launch counts and the routes follow the committed files.
 """
 
 from __future__ import annotations
@@ -57,16 +71,22 @@ from __future__ import annotations
 import argparse
 import sys
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional, Tuple
 
 from .fib import FibAir
-from .generated import COMMAND, CSRC, class_key, paths
-from .miden import MidenAir
-from .symbolic import REUSE_WINDOW, Emission, Program, emission, trace
+from .generated import (COMMAND, CSRC, class_key, function_key, paths,
+                        row_paths)
+from .miden import MidenAir, _bus_row_factors
+from .symbolic import (REUSE_WINDOW, Emission, Program, emission, trace,
+                       trace_rows)
 from ..field.sym import ADD, CONST, LOAD, MUL, NEG, RAND, SUB
 
-# AIR class -> the name of its generated files and entry point
+# AIR class -> the name of its generated K5 files and entry point
 GENERATED: Dict[type, str] = {MidenAir: "miden", FibAir: "fib"}
+# AIR class -> (the name of its generated K6 files and entry point, the row
+# function of its aux build)
+ROW_GENERATED: Dict[type, Tuple[str, Callable]] = {
+    MidenAir: ("miden", _bus_row_factors)}
 
 _OPS = {ADD: "gl_add", SUB: "gl_sub", MUL: "gl_mul"}
 
@@ -75,33 +95,46 @@ def struct_name(name: str) -> str:
     return name.capitalize() + "Transitions"
 
 
-def _header(prog: Program, em: Emission, air_cls, what: str) -> str:
+def row_struct_name(name: str) -> str:
+    return name.capitalize() + "AuxFactors"
+
+
+def _header(prog: Program, em: Emission, air_cls, what: str,
+            fn: Optional[Callable] = None) -> str:
+    """K5's header, or with the row function `fn` K6's."""
     c = prog.counts()
     ops = ", ".join(f"{c.get(k, 0)} {k}" for k in (MUL, ADD, SUB, NEG))
+    source = (f"{air_cls.__module__}.{air_cls.__name__}.evaluate_transitions"
+              if fn is None else function_key(fn))
     return (
-        f"// GENERATED FILE, do not edit: {what} of kernel K5 for\n"
-        f"// {air_cls.__module__}.{air_cls.__name__}.evaluate_transitions,"
+        f"// GENERATED FILE, do not edit: {what} of kernel "
+        f"{'K5' if fn is None else 'K6'} for\n"
+        f"// {source},"
         f"\n// traced by aero_tpu_torch/air/symbolic.py and written by\n"
         f"//   {COMMAND}\n"
-        f"// {len(prog.outputs)} constraints; {ops}; "
+        f"// {len(prog.outputs)} "
+        f"{'constraints' if fn is None else 'outputs'}; {ops}; "
         f"{c.get(LOAD, 0)} frame loads, {c.get(RAND, 0)} rands, "
         f"{c.get(CONST, 0)} constants;\n"
         f"// at most {prog.peak_live()} values live at once in this order.\n"
         f"// emission: {len(em.remat)} values computed at their uses (again "
         f"after a re-read), reuse window {REUSE_WINDOW} sites;\n"
-        f"// a point: {em.extra_ops} extra ops, {em.frame_reads} frame reads, "
+        f"// {'a point' if fn is None else 'a row'}: {em.extra_ops} extra "
+        f"ops, {em.frame_reads} frame reads, "
         f"{em.rand_reads} rand reads; at most {em.peak_live} values live.\n"
         f"// air-class: {class_key(air_cls)}\n"
-        f"// dag-digest: {prog.digest}\n")
+        + (f"// traced: {function_key(fn)}\n" if fn is not None else "")
+        + f"// dag-digest: {prog.digest}\n")
 
 
 def _operand(x) -> str:
     return f"0x{x:x}ULL" if isinstance(x, int) else x
 
 
-def emit_transitions(prog: Program, em: Emission, air_cls,
-                     name: str) -> str:
-    """The per-point header of AIR `name`: the statements of `em`."""
+def _body(prog: Program, em: Emission) -> str:
+    """The statements of `em` as C++: output k goes to
+    `out.put<k, its degree class>()`, or `out.put<k>()` in a program
+    without classes."""
     body = []
     for kind, val, args in em.steps:
         if kind == "read":
@@ -110,13 +143,20 @@ def emit_transitions(prog: Program, em: Emission, air_cls,
             col = n.args[1] if n.kind == LOAD else n.args[0]
             body.append(f"    const u64 {val} = in.{src}({col});")
         elif kind == "put":
-            body.append(f"    out.template put<{args}, {prog.classes[args]}>"
+            cls = f", {prog.classes[args]}" if prog.classes else ""
+            body.append(f"    out.template put<{args}{cls}>"
                         f"({_operand(val)});")
         else:
             a = [_operand(x) for x in args]
             rhs = (f"gl_sub(0ULL, {a[0]})" if kind == NEG
                    else f"{_OPS[kind]}({a[0]}, {a[1]})")
             body.append(f"    const u64 {val} = {rhs};")
+    return "\n".join(body)
+
+
+def emit_transitions(prog: Program, em: Emission, air_cls,
+                     name: str) -> str:
+    """The per-point header of AIR `name`: the statements of `em`."""
     degrees = ", ".join(map(str, prog.degrees))
     return (_header(prog, em, air_cls, "the per-point constraint values")
             + "#pragma once\n\n#include \"frag_eval.cuh\"\n\n"
@@ -132,7 +172,7 @@ def emit_transitions(prog: Program, em: Emission, air_cls,
             "merge\n"
             "  template <class In, class Out>\n"
             "  static GL_FN void eval(const In& in, Out& out) {\n"
-            + "\n".join(body) + "\n  }\n};\n")
+            + _body(prog, em) + "\n  }\n};\n")
 
 
 def emit_kernel(prog: Program, em: Emission, air_cls, name: str) -> str:
@@ -147,14 +187,62 @@ def emit_kernel(prog: Program, em: Emission, air_cls, name: str) -> str:
             "\n}\n")
 
 
+def emit_row_factors(prog: Program, em: Emission, air_cls, fn,
+                     name: str) -> str:
+    """The per-row header of AIR `name`'s K6: the statements of `em`."""
+    return (_header(prog, em, air_cls, "the per-row values", fn)
+            + "#pragma once\n\n#include \"frag_eval.cuh\"\n\n"
+            f"struct {row_struct_name(name)} {{\n"
+            f"  static constexpr int kOutputs = {len(prog.outputs)};\n"
+            f"  static constexpr int kMainWidth = {prog.main_width};\n"
+            f"  static constexpr int kRands = {prog.rands};\n\n"
+            "  // output k of the row goes to out.put<k>(); the row's cells\n"
+            "  // come from in.main_cur, the next row's from in.main_nxt\n"
+            "  template <class In, class Out>\n"
+            "  static GL_FN void eval(const In& in, Out& out) {\n"
+            + _body(prog, em) + "\n  }\n};\n")
+
+
+def emit_row_kernel(prog: Program, em: Emission, air_cls, fn,
+                    name: str) -> str:
+    """The `extern "C"` entry of K6 for AIR `name`."""
+    return (_header(prog, em, air_cls, "the entry point", fn) + "\n"
+            f"#include \"aux_{name}_factors.cuh\"\n\n"
+            "// Kernel K6 over the n rows of the main trace: the (outputs, n)"
+            " values,\n// one thread a row (csrc/frag_eval.cuh).\n"
+            f"extern \"C\" int {name}_aux_factors(ROW_EVAL_PARAMS) {{\n"
+            f"  return row_eval_launch<{row_struct_name(name)}>"
+            "(ROW_EVAL_ARGS);\n}\n")
+
+
 def generate(air_cls) -> Dict[Path, str]:
-    """path -> text of the generated files of one AIR class."""
+    """path -> text of the generated K5 files of one AIR class."""
     name = GENERATED[air_cls]
     prog = trace(air_cls)
     em = emission(prog)
     head, entry = paths(name)
     return {head: emit_transitions(prog, em, air_cls, name),
             entry: emit_kernel(prog, em, air_cls, name)}
+
+
+def generate_rows(air_cls) -> Dict[Path, str]:
+    """path -> text of the generated K6 files of one AIR class."""
+    name, fn = ROW_GENERATED[air_cls]
+    prog = trace_rows(fn, air_cls.main_width, air_cls.aux_rands)
+    em = emission(prog)
+    head, entry = row_paths(name)
+    return {head: emit_row_factors(prog, em, air_cls, fn, name),
+            entry: emit_row_kernel(prog, em, air_cls, fn, name)}
+
+
+def generated_files() -> Dict[Path, str]:
+    """path -> text of every generated file, K5's and K6's."""
+    out: Dict[Path, str] = {}
+    for cls in GENERATED:
+        out.update(generate(cls))
+    for cls in ROW_GENERATED:
+        out.update(generate_rows(cls))
+    return out
 
 
 def main(argv=None) -> int:
@@ -167,13 +255,12 @@ def main(argv=None) -> int:
                            "would be written")
     args = ap.parse_args(argv)
     stale = []
-    for cls in GENERATED:
-        for path, text in generate(cls).items():
-            if args.write:
-                path.write_text(text)
-                print(f"wrote {path.relative_to(CSRC.parent.parent)}")
-            elif not path.exists() or path.read_text() != text:
-                stale.append(path)
+    for path, text in generated_files().items():
+        if args.write:
+            path.write_text(text)
+            print(f"wrote {path.relative_to(CSRC.parent.parent)}")
+        elif not path.exists() or path.read_text() != text:
+            stale.append(path)
     for path in stale:
         print(f"stale: {path.relative_to(CSRC.parent.parent)} (run "
               f"`{COMMAND}`)", file=sys.stderr)

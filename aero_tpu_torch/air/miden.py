@@ -29,7 +29,8 @@ from ..vm import (COL_CLK, COL_G, COL_M, NUM_GROUPS, NUM_MEMBERS,
                          rom_listing, program_hash)
 
 from ..field import (add, batch_inv, gf_cumprod, gf_cumsum, gf_full,
-                     gf_zeros, mul, mul_scalar, scalar, sub)
+                     gf_zeros, gl_cuda, mul, mul_scalar, scalar, sub)
+from . import generated
 from .air import Air, Assertion, TransitionDegree
 
 OP = {name: i for i, name in enumerate(OPS)}
@@ -679,9 +680,29 @@ class MidenAir(Air):
         `main_trace` (`aero_tpu`'s `build_aux_trace_host` is the oracle the
         tests hold it against)."""
         self._aux_rand = [int(r) % P for r in aux_rand]
-        g = [scalar(r, main_trace.device) for r in self._aux_rand]
+        return _aux_scans(*self.bus_factors(main_trace, self._aux_rand))
+
+    def bus_factors(self, main_trace: torch.Tensor,
+                    rands: Sequence[int]) -> tuple:
+        """The eight per-row bus factors of `_bus_row_factors` (ins_f,
+        del_f, req, resp, da, db, lgnum, prod_f), each (n,). On the card
+        one launch of kernel K6, generated from `_bus_row_factors` for
+        this AIR's exact class, reading row i + 1 where it lies (a stale
+        generated file raises); otherwise `_bus_row_factors` op by op
+        over the trace and its roll by one row (the plain ops on the
+        CPU)."""
+        if gl_cuda.on_cuda(main_trace):
+            found = generated.row_kernel_for(self, _bus_row_factors)
+            if found is not None:
+                name, prog = found
+                rows = gl_cuda.aux_factors(
+                    name, main_trace,
+                    gl_cuda.device_vector(rands, main_trace.device),
+                    len(prog.outputs))
+                return tuple(rows.unbind(0))
+        g = [scalar(r, main_trace.device) for r in rands]
         nxt = torch.roll(main_trace, -1, dims=-1)
-        return _aux_scans(*_bus_row_factors(main_trace, nxt, g))
+        return _bus_row_factors(main_trace, nxt, g)
 
 
 # ------------------------------------------------- device-side aux builders

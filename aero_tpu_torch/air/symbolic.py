@@ -1,11 +1,14 @@
-"""Symbolic trace of an AIR's transition constraints.
+"""Symbolic trace of an AIR's transition constraints and of its aux rows.
 
 `trace(air_cls)` runs the AIR's own, unchanged `evaluate_transitions` on
 symbolic frames and rands (`field/sym.py`): the field ops record a
 hash-consed DAG of loads, rands, constants and add / sub / neg / mul
 instead of computing. The result, a `Program`, is what `air/codegen.py`
 turns into the straight-line C++ of kernel K5, so the AIR method stays the
-one source of its constraints. `interpret` evaluates a program with the
+one source of its constraints. `trace_rows(fn, ...)` does the same for a
+function of a row and the next row of the main trace (`MidenAir`'s bus
+factors, `_bus_row_factors`), whose outputs have no degree class: the
+source of kernel K6. `interpret` evaluates a program with the
 plain torch ops, and `Program.digest` names it: the generated files carry
 the digest of the program they were made from, and the K5 route refuses a
 file whose digest the AIR no longer traces to.
@@ -58,9 +61,11 @@ class Node:
 
 @dataclass(frozen=True)
 class Program:
-    """The traced constraints of one AIR class: `nodes` in emission order;
-    `outputs[k]` the node of constraint k; `classes[k]` the index of
-    constraint k's degree in `degrees` (its x^adj row in the merge)."""
+    """The traced constraints of one AIR class, or the traced outputs of a
+    row function (`air` its name): `nodes` in emission order; `outputs[k]`
+    the node of constraint k; `classes[k]` the index of constraint k's
+    degree in `degrees` (its x^adj row in the merge), both empty for a row
+    function."""
     air: str
     main_width: int
     aux_width: int
@@ -364,6 +369,22 @@ def schedule(outputs: Sequence[Sym]) -> Tuple[List[Sym], List[int]]:
     return order, [pos[o.id] for o in outputs]
 
 
+def _nodes(graph: SymGraph, outs, what: str) -> Tuple[tuple, tuple]:
+    """(the nodes the outputs reach in `schedule`'s order, each output's
+    position among them)."""
+    outs = [o if type(o) is Sym else None for o in outs]
+    if any(o is None or o.graph is not graph for o in outs):
+        raise TypeError(f"{what} returned values that are not nodes of its "
+                        "trace")
+    order, out_pos = schedule(outs)
+    index = {n.id: i for i, n in enumerate(order)}
+    nodes = tuple(Node(n.kind, tuple(index[a.id] for a in n.args)
+                       if n.kind in (ADD, SUB, NEG, MUL) else
+                       (n.args if isinstance(n.args, tuple) else (n.args,)))
+                  for n in order)
+    return nodes, tuple(out_pos)
+
+
 def trace(air_cls) -> Program:
     """Run `air_cls.evaluate_transitions` on symbolic frames. The method
     reads nothing of the instance (the constraints are the class's), so it
@@ -376,25 +397,29 @@ def trace(air_cls) -> Program:
               SymFrame(graph, "aux_cur", aux_w) if aux_w else None,
               SymFrame(graph, "aux_nxt", aux_w) if aux_w else None]
     rands = [graph.node(RAND, i) for i in range(air_cls.aux_rands)]
-    outs = air.evaluate_transitions(*frames, rands)
-    outs = [o if type(o) is Sym else None for o in outs]
-    if any(o is None or o.graph is not graph for o in outs):
-        raise TypeError(f"{air_cls.__name__}.evaluate_transitions returned "
-                        "values that are not nodes of its trace")
-    order, out_pos = schedule(outs)
-    index = {n.id: i for i, n in enumerate(order)}
-    nodes = tuple(Node(n.kind, tuple(index[a.id] for a in n.args)
-                       if n.kind in (ADD, SUB, NEG, MUL) else
-                       (n.args if isinstance(n.args, tuple) else (n.args,)))
-                  for n in order)
+    nodes, outputs = _nodes(graph, air.evaluate_transitions(*frames, rands),
+                            f"{air_cls.__name__}.evaluate_transitions")
     degrees, classes = _degree_classes(
         [d.base for d in air.transition_degrees()])
-    if len(classes) != len(outs):
-        raise ValueError(f"{air_cls.__name__}: {len(outs)} constraints but "
-                         f"{len(classes)} transition degrees")
+    if len(classes) != len(outputs):
+        raise ValueError(f"{air_cls.__name__}: {len(outputs)} constraints "
+                         f"but {len(classes)} transition degrees")
     return Program(air_cls.__name__, air_cls.main_width, aux_w,
-                   air_cls.aux_rands, nodes, tuple(out_pos), degrees,
-                   classes)
+                   air_cls.aux_rands, nodes, outputs, degrees, classes)
+
+
+def trace_rows(fn, main_width: int, rands: int) -> Program:
+    """Run `fn(cur, nxt, g)`, a function of one row of the main trace, the
+    row after it and `rands` rands that returns field values (the aux
+    build's `_bus_row_factors`), on symbolic frames of `main_width`
+    columns. Its outputs have no degree class."""
+    graph = SymGraph()
+    g = [graph.node(RAND, i) for i in range(rands)]
+    nodes, outputs = _nodes(graph, fn(SymFrame(graph, "main_cur", main_width),
+                                      SymFrame(graph, "main_nxt", main_width),
+                                      g), fn.__qualname__)
+    return Program(fn.__qualname__, main_width, 0, rands, nodes, outputs,
+                   (), ())
 
 
 _PLAIN = {ADD: gl.add_plain, SUB: gl.sub_plain, NEG: gl.neg_plain,

@@ -19,7 +19,21 @@
 //               x^adj_k the row of constraint k's degree class;
 //   StoreOut    writes the raw constraint values (T, m) instead;
 //
-// and, for the card only, the kernels and their launch. The per-point code
+// and, for the card only, the kernels and their launch.
+//
+// Kernel K6, the port's counterpart of aero_tpu's _aux_factors_jit
+// (aero_tpu/air/miden.py:1073, the bus factors of _bus_row_factors under
+// jax.jit), shares the per-point code: aux_<name>_factors.cuh holds
+// `eval(in, out)` for one row of the main trace, generated from the row
+// function by the same emission, and reads it through
+//
+//   RowsIn      row i's cells and row (i + 1) mod n's, both read in place
+//               in the (width, n) trace: no rolled copy of the trace;
+//
+// handing each value to StoreOut, one row a thread (row_eval_kernel). It
+// is bound by its ALU pipe (some 324 field ops a row, about 4 900 ALU
+// instructions, against 54 words moved), so it takes K5's rules: a short
+// live set, reads as opaque loads, ptxas at -O1. The per-point code
 // compiles on the host as well (define __device__ and __forceinline__
 // away and __umul64hi with unsigned __int128): the CPU tests run the
 // committed text through g++.
@@ -120,13 +134,36 @@ struct MergeOut {
   }
 };
 
+// Output K of point e to out[K * m + e]; a program without degree
+// classes (K6's) names no class.
 struct StoreOut {
   u64* out;
   long long m, e;
 
-  template <int K, int CLS>
+  template <int K, int CLS = 0>
   GL_FN void put(u64 v) { out[K * m + e] = v; }
 };
+
+// Row e of a (width, n) trace at row stride `stride` and the row after it,
+// (e + 1) mod n: the frames of a row function (K6), read in place.
+struct RowsIn {
+  const u64* tr;
+  long long stride;
+  const u64* rands;
+  long long e, en;
+
+  GL_FN u64 main_cur(int c) const { return frag_read(tr, stride, c, e); }
+  GL_FN u64 main_nxt(int c) const { return frag_read(tr, stride, c, en); }
+  GL_FN u64 rand(int i) const { return frag_read(rands, 1, i, 0); }
+};
+
+// The outputs of row in.e into out (outputs, n).
+template <class Fn>
+GL_FN void row_store_point(RowsIn in, u64* out, long long n) {
+  in.en = in.e + 1 == n ? 0 : in.e + 1;
+  StoreOut s{out, n, in.e};
+  Fn::eval(in, s);
+}
 
 // The merged composition value of the point in.e.
 template <class Air>
@@ -197,6 +234,34 @@ frag_store_kernel(FrameIn in, u64* __restrict__ out, long long m) {
 #define FRAG_EVAL_ARGS                                                     \
   mc, smc, mn, smn, ac, sac, an, san, rands, cc_t, cc_b, bvals, zt, dinv,  \
       sd, xp, sx, idx, B, out, m, mode, stream
+
+// One row a thread, as K5 takes one point a thread.
+template <class Fn>
+__global__ void __launch_bounds__(kFragThreads)
+row_eval_kernel(RowsIn in, u64* __restrict__ out, long long n) {
+  in.e = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (in.e < n) row_store_point<Fn>(in, out, n);
+}
+
+#define ROW_EVAL_PARAMS                                                    \
+  const void *tr, long long stride, const void *rands, void *out,          \
+      long long n, void *stream
+#define ROW_EVAL_ARGS tr, stride, rands, out, n, stream
+
+// K6 over the n rows of the (width, n) trace at row stride `stride`: the
+// (Fn::kOutputs, n) values into out.
+template <class Fn>
+int row_eval_launch(ROW_EVAL_PARAMS) {
+  // frag_read's strides and points are below 2^32
+  if (stride < 0 || stride >= (1LL << 32) || n < 0 || n >= (1LL << 32))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return (int)cudaSuccess;
+  const RowsIn in{(const u64*)tr, stride, (const u64*)rands, 0, 0};
+  const unsigned grid = (unsigned)((n + kFragThreads - 1) / kFragThreads);
+  row_eval_kernel<Fn><<<grid, kFragThreads, 0, (cudaStream_t)stream>>>(
+      in, (u64*)out, n);
+  return (int)cudaGetLastError();
+}
 
 // mode 0: the merged row out (m,); mode 1: the constraint values (T, m).
 template <class Air>

@@ -385,16 +385,42 @@ def eval_polys_at(polys: torch.Tensor, z: int) -> np.ndarray:
     return eval_polys_multi(rows, [z])[0].reshape(polys.shape[:-1])
 
 
-def eval_polys_multi(polys: torch.Tensor, zs) -> np.ndarray:
-    """Evaluate coefficient rows (w, n) at every scalar in `zs`: returns
-    uint64 (k, w). One point at a time, chunked over w so the (w_chunk, n)
-    term array stays near 2^25 elements (a term array is a row chunk times
-    one power row: a broadcast K1 reads in place)."""
-    w, n = polys.shape
+def _blocks(polys) -> list:
+    return [polys] if isinstance(polys, torch.Tensor) else list(polys)
+
+
+def eval_polys_multi(polys, zs) -> np.ndarray:
+    """Evaluate coefficient rows at every scalar in `zs` (`jax_gl.
+    eval_polys_multi`): `polys` one (w, n) tensor or a list of (w_i, n)
+    row blocks, taken in order as one (sum w_i, n) without a copy; returns
+    uint64 (k, w). On the card one call of kernel K7 (at most four blocks
+    and four points), on the CPU `eval_polys_multi_plain`."""
+    blocks = _blocks(polys)
+    if gl_cuda.on_cuda(*blocks):
+        return to_u64(gl_cuda.eval_multi(blocks, zs))
+    return eval_polys_multi_plain(blocks, zs)
+
+
+def eval_polys_multi_plain(polys, zs) -> np.ndarray:
+    """`eval_polys_multi` in the plain ops: the power row [z^0 .. z^(n-1)]
+    of each point by log-doubling, then each block's terms, chunked over
+    its rows so a (rows, n) term array stays near 2^25 elements, summed
+    by a pairwise tree."""
+    blocks = _blocks(polys)
+    n = blocks[0].shape[-1]
+    w = sum(blk.shape[0] for blk in blocks)
+    if n == 0 or w == 0:
+        return np.zeros((len(zs), w), dtype=np.uint64)
+    device = blocks[0].device
     bases = from_u64(np.array([int(z) % P for z in zs], dtype=np.uint64),
-                     polys.device)
-    zps = power_series_rows(bases, n)                      # (k, n)
+                     device).reshape(-1, 1)
+    zps = torch.ones_like(bases)
+    while zps.shape[1] < n:
+        zps = torch.cat([zps, mul_plain(zps, bases)], dim=1)
+        bases = mul_plain(bases, bases)
+    zps = zps[:, :n]
     cw = max(1, (1 << 25) // max(n, 1))
-    rows = [torch.cat([gf_sum(mul(polys[i:i + cw], zp), axis=-1)
-                       for i in range(0, w, cw)]) for zp in zps]
-    return to_u64(torch.stack(rows))
+    cols = [gf_sum_plain(mul_plain(blk[i:i + cw], zp), axis=-1)
+            for zp in zps for blk in blocks
+            for i in range(0, blk.shape[0], cw)]
+    return to_u64(torch.cat(cols).reshape(len(zs), w))

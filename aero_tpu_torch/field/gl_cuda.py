@@ -20,7 +20,14 @@ counterpart:
 - K5 `<air>_frag_eval`: one fragment's constraint evaluation and merge in
   one pass, a kernel generated for each AIR class from its own constraints
   (`air/codegen.py`, `csrc/frag_eval.cuh`): the whole of
-  `jax.jit(frag_fn)`, `prover.py:407-446`.
+  `jax.jit(frag_fn)`, `prover.py:407-446`;
+- K6 `<air>_aux_factors`: the per-row bus factors of an AIR's aux build, a
+  kernel generated from the row function (`MidenAir`'s
+  `_bus_row_factors`) by the same generator: `_aux_factors_jit`,
+  `aero_tpu/air/miden.py:1073`;
+- K7 `gl_eval_multi` (`csrc/eval_multi.cu`): coefficient rows evaluated at
+  a few points, one call of two launches: `power_series_dyn` and
+  `_eval_multi_core`, `aero_tpu/field/jax_gl.py:437`, `:456`.
 
 The wrappers here take CUDA tensors only; `field/gl.py` and
 `prover/prover.py` send a CPU tensor to the plain versions beside them
@@ -35,18 +42,25 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from .. import _build
+from .sym import P
 
 LAUNCHES = {"gl_elementwise": 0, "gl_scan": 0, "gl_batch_inv": 0,
             "gl_constraint_merge": 0, "gl_deep_combine": 0,
             **{f"{n}_frag_eval": 0 for n in _build.FRAG_EVAL_AIRS},
-            "gl_elementwise_copies": 0}
+            **{f"{n}_aux_factors": 0 for n in _build.ROW_EVAL_AIRS},
+            "gl_eval_multi": 0, "gl_elementwise_copies": 0}
 
 ADD, SUB, MUL, POW = 0, 1, 2, 3          # csrc/field.cu `Op`
 SCAN_TILE = 4096                         # csrc/field.cu kScanTile
 INV_TILE = 2048                          # csrc/field.cu kInvTile
+# csrc/eval_multi.cu: a block's threads, a thread's coefficients of a row,
+# the row blocks and points a call takes, the bits of z's power table
+EVAL_THREADS, EVAL_STEPS = 256, 32
+EVAL_MAX_BLOCKS, EVAL_MAX_POINTS, EVAL_POW_BITS = 4, 4, 32
 MODE_FULL, MODE_ONE, MODE_STRIDED = 0, 1, 2
 
 
@@ -256,6 +270,15 @@ def _pointer_table(ptrs: Sequence[int], device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+def device_vector(values: Sequence[int], device) -> torch.Tensor:
+    """Field elements (ints) as a device int64 array of their canonical bit
+    patterns, copied from pinned host memory without waiting for the
+    stream."""
+    canon = [int(v) % P for v in values]
+    return _pointer_table([v - (1 << 64) if v >= 1 << 63 else v
+                           for v in canon], device)
+
+
 def constraint_merge(t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt,
                      dinv) -> torch.Tensor:
     """K3 over one fragment of m points: every row argument is a tensor of m
@@ -379,4 +402,83 @@ def frag_eval(name: str, frames, rands, cc_t, cc_b, bvals, zt, dinv, xp,
                   xpp, xld, _dense(idx, idx.numel(), "frag_eval"), B,
                   out.data_ptr(), m, int(transitions), _stream(zt))
     LAUNCHES[key] += 1
+    return out
+
+
+# ---------------------------------------------------------------------- K6
+
+def aux_factors(name: str, trace: torch.Tensor, rands: torch.Tensor,
+                n_outputs: int) -> torch.Tensor:
+    """K6 of AIR `name` over the (width, n) main trace, read in place at its
+    row stride (row i and row (i + 1) mod n), with `rands` (R,): the
+    (n_outputs, n) per-row values. One launch."""
+    key = f"{name}_aux_factors"
+    if key not in LAUNCHES:
+        raise ValueError(f"aux_factors: no generated kernel {key}")
+    if not on_cuda(trace, rands):
+        raise ValueError("aux_factors: needs CUDA tensors (the plain "
+                         "version takes a CPU trace)")
+    n = trace.shape[-1]
+    keep: list = []
+    ptr, stride = _rows_in_place(trace, n, "aux_factors", keep)
+    out = torch.empty((n_outputs, n), dtype=torch.int64, device=trace.device)
+    _build.launch(key, ptr, stride, _dense(rands, rands.numel(),
+                                           "aux_factors"),
+                  out.data_ptr(), n, _stream(trace))
+    LAUNCHES[key] += 1
+    return out
+
+
+# ---------------------------------------------------------------------- K7
+
+def eval_chunks(n: int) -> int:
+    """Blocks of coefficients K7 takes along a row of n."""
+    return -(-n // (EVAL_THREADS * EVAL_STEPS))
+
+
+def power_table(zs) -> np.ndarray:
+    """(k, EVAL_POW_BITS) uint64: z^(2^b) of each point, the table K7
+    makes its powers from."""
+    out = np.zeros((len(zs), EVAL_POW_BITS), dtype=np.uint64)
+    for t, z in enumerate(zs):
+        v = int(z) % P
+        for b in range(EVAL_POW_BITS):
+            out[t, b] = v
+            v = v * v % P
+    return out
+
+
+def eval_multi(blocks: Sequence[torch.Tensor], zs) -> torch.Tensor:
+    """K7: the rows of `blocks` ((w_i, n) each, read in place at their row
+    stride, in order) evaluated at each of the k <= 4 points `zs`, as
+    (k, sum w_i). One call, two launches (the blocks' partial sums, their
+    fold)."""
+    blocks = list(blocks)
+    if not 1 <= len(blocks) <= EVAL_MAX_BLOCKS:
+        raise ValueError(f"eval_multi: takes 1 to {EVAL_MAX_BLOCKS} row "
+                         f"blocks, got {len(blocks)}")
+    if not 1 <= len(zs) <= EVAL_MAX_POINTS:
+        raise ValueError(f"eval_multi: takes 1 to {EVAL_MAX_POINTS} points, "
+                         f"got {len(zs)}")
+    if not on_cuda(*blocks):
+        raise ValueError("eval_multi: needs CUDA tensors (the plain "
+                         "version takes CPU rows)")
+    n = blocks[0].shape[-1]
+    keep: list = []
+    args = []
+    for blk in blocks:
+        ptr, stride = _rows_in_place(blk, n, "eval_multi", keep)
+        args += [ptr, stride, blk.shape[0]]
+    args += [None, 0, 0] * (EVAL_MAX_BLOCKS - len(blocks))
+    w = sum(blk.shape[0] for blk in blocks)
+    device = blocks[0].device
+    if w == 0 or n == 0:
+        return torch.zeros((len(zs), w), dtype=torch.int64, device=device)
+    pows = power_table(zs)
+    out = torch.empty((len(zs), w), dtype=torch.int64, device=device)
+    partial = torch.empty(len(zs) * w * eval_chunks(n), dtype=torch.int64,
+                          device=device)
+    _build.launch("gl_eval_multi", *args, pows.ctypes.data, len(zs),
+                  partial.data_ptr(), out.data_ptr(), n, _stream(blocks[0]))
+    LAUNCHES["gl_eval_multi"] += 2
     return out

@@ -438,7 +438,8 @@ def stage_ood_frames(air: Air, st: ProverState) -> None:
     if air.aux_width:
         segs.append(st.aux_polys)
     segs.append(st.col_coeffs)
-    evals = eval_polys_multi(torch.cat(segs), [st.z, zg, z_m])   # (3, w+ce)
+    # the row blocks as they lie: on the card one call of kernel K7
+    evals = eval_polys_multi(segs, [st.z, zg, z_m])   # (3, w+ce)
     w_trace = air.main_width + (air.aux_width or 0)
     st.cur_row = [int(v) for v in evals[0, :w_trace]]
     st.nxt_row = [int(v) for v in evals[1, :w_trace]]

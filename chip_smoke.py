@@ -15,13 +15,16 @@ each of which raises on a failed check (so the script exits non-zero):
      grind vs a host scan, at 2^16 leaves and at the shapes the 2^20-row
      proof launches (72 x 2^23 and 9 x 2^23 leaves, a 2^23 -> 2^22 level);
   2. NTT kernel vs its plain versions, round trips, a coset LDE, and the
-     72 x 2^23 transform of the 2^20-row proof; 2b: the field kernels K1-K5
-     (`csrc/field.cu`, and K5 generated from MidenAir's constraints,
-     `csrc/air_miden.cu`) vs their plain versions at the 2^20-row proof's
-     shapes, each timed beside its bound; K3 and K5 on that proof's
+     72 x 2^23 transform of the 2^20-row proof; 2b: the field kernels K1-K7
+     (`csrc/field.cu`; K5 generated from MidenAir's constraints,
+     `csrc/air_miden.cu`; K6 from its bus factors, `csrc/aux_miden.cu`;
+     K7 `csrc/eval_multi.cu`) vs their plain versions at the 2^20-row
+     proof's shapes, each timed beside its bound; K3 and K5 on that proof's
      fragment 0, K5 also against the eager path (K1 a field op, then K3),
      with its registers, warps an SM and the words it reads (the set-up
-     fails if K5's merge kernel spills);
+     fails if K5's merge kernel spills); K6 on that proof's trace, also
+     against `_bus_row_factors` op by op on the card; K7 on its 72 + 9 + 8
+     coefficient rows at three points, the rows read where they lie;
   3. the golden-parameter Miden proof (fib(10), 1024 rows, default
      options) through `aero_tpu_torch.sdk.prove` on the card: its sha256
      must equal the committed `aero_tpu` digest, and it must verify; then
@@ -30,8 +33,11 @@ each of which raises on a failed check (so the script exits non-zero):
      execution trace (2^23-point LDE domain), cold and steady, then the same
      program through `aero_tpu_torch.sdk.prove(min_rows=2^20)`: equal bytes
      all three, the SDK's must verify, and its launches are the ones the
-     `kernels` line reports; prints stage times, wall clocks, peak memory,
-     sha256 (`--proof-out FILE` writes the proof with its public inputs);
+     `kernels` line reports: one K6 launch, one K7 call (two launches), at
+     most 250 K1 launches, and no `torch.roll` of the trace nor `torch.cat`
+     of the coefficient rows on the card; prints stage times, wall clocks,
+     peak memory, sha256 (`--proof-out FILE` writes the proof with its
+     public inputs);
   5. the served path: a `SubmissionServer` on an ephemeral port accepts the
      2^20-row proof (same receipt twice) and the golden proof, refuses a
      tampered nonce and answers garbage with HTTP 400;
@@ -47,7 +53,8 @@ each of which raises on a failed check (so the script exits non-zero):
      the exchanges staged through pinned host memory and gloo, asked for by
      name (`exchange="host"`). First each kernel is held against its plain
      version at every shape the 2^18-row runs hand it (K5 on fragments of
-     2^20 and 2^19 points of a rank's block). Prints the roots,
+     2^20 and 2^19 points of a rank's block, K6 on the traces of the aux
+     builds in the runs' set-up). Prints the roots,
      each rank's seconds per stage, the bytes each kind of exchange moved
      and the launches per kernel; a mismatch or a dead rank raises.
   8. the int8 tensor-core 4-step NTT (`ntt/ntt_mxu.py`; `torch._int_mm`, no
@@ -72,9 +79,11 @@ each of which raises on a failed check (so the script exits non-zero):
      equal to `ntt.lde`'s single 2^27-point transform), each printing its
      metric record, and the proof records from the times of phases 3 and 4.
 
-`--profile` runs the set-up and no phase: it proves the 2^20-row trace five
+`--profile` runs the set-up and no phase: it proves the 2^20-row trace six
 times and prints each proof's stage seconds, collector and allocator
-figures, the last one under `torch.profiler` (`profile_scale`).
+figures, the fifth stage by stage with its K1 launches by stage, the last
+one under `torch.profiler` (`profile_scale`), and its K1, K6 and K7
+launches.
 
 Kernel comparisons are exact (tolerance 0): finite-field and hash
 arithmetic. Launch counters are reset right before each proof and read
@@ -152,6 +161,24 @@ K5_REPLACES = ("aero_tpu/prover/prover.py:407",
                "and 46 assertions merged in one pass; generated from "
                "MidenAir.evaluate_transitions (csrc/air_miden_transitions."
                "cuh, csrc/frag_eval.cuh)")
+# kernel K6: generated from MidenAir's row function (air/codegen.py)
+K6_SRC = "aero_tpu_torch/csrc/aux_miden.cu"
+K6_REPLACES = ("aero_tpu/air/miden.py:1073",
+               "no Pallas kernel: XLA's fusion of _aux_factors_jit "
+               "(miden.py:1073, _bus_row_factors :937 under jax.jit), "
+               "MidenAir's eight bus factors a row in one pass, the next "
+               "row read in place; generated from the port's "
+               "_bus_row_factors (csrc/aux_miden_factors.cuh, "
+               "csrc/frag_eval.cuh); the dry run builds its aux segment "
+               "through it in its set-up, before its counts are reset")
+K7_SRC = "aero_tpu_torch/csrc/eval_multi.cu"
+K7_THREADS = 256               # csrc/eval_multi.cu kEvalThreads
+K7_REPLACES = ("aero_tpu/field/jax_gl.py:456",
+               "no Pallas kernel: XLA's fusion of _eval_multi_core and "
+               "power_series_dyn (jax_gl.py:456, :437, under "
+               "eval_polys_multi :464); one call of two launches (the "
+               "blocks' partial sums, their fold); the dry run evaluates "
+               "no OOD point")
 K3_OFF_PATH = ("since PR 8 not on the main path: K5 evaluates and merges a "
                "MidenAir fragment in one launch; K3 stays the merge of an "
                "AIR without a generated kernel and K5's on-card cross-check")
@@ -920,7 +947,8 @@ def field_k4(dev, gen, widths, log_m: int, log_ld: int, timer, sass,
 def scale_merger(dev):
     """The merger of the 2^20-row proof (the program of phase 4) and the
     frames of its fragment 0: the trace and aux commits, the constraint
-    coefficients as the transcript draws them."""
+    coefficients as the transcript draws them; and the trace, the aux
+    rands and the main and aux coefficient rows."""
     from aero_tpu_torch.prover import prover as PR
     from aero_tpu_torch.spec import field as F
     prep = bench_gpu._prepare(long_fib_source(((1 << 20) - 64) // 12),
@@ -939,43 +967,52 @@ def scale_merger(dev):
     b = air.options.blowup_factor
     frames = tuple(PR._frag(lde_, a, PR.FRAG)
                    for lde_ in (st.main_lde, st.aux_lde) for a in (0, b))
-    return merger, frames
+    return merger, frames, (prep.trace, st.aux_rand, st.main_polys,
+                            st.aux_polys)
 
 
-def k5_resources(lib, sass) -> dict:
-    """K5's merge kernel for MidenAir in library `lib`, logged: registers
-    a thread, stack bytes, spill instructions (local stores and loads in
-    the SASS), global loads and instructions, and the blocks and warps an
-    SM those registers leave room for; the run fails on a spill. Into
-    `sass`: "k5_point", the kernel's code (a thread runs one point with no
-    loop around it, so its whole code counts once a point, its assertion
-    loop once in it), and "k5_assertion", one trip of its assertion
-    loop."""
+def kernel_resources(lib, pattern: str, threads: int, what: str) -> tuple:
+    """(resources, SASS body) of the one kernel of library `lib` whose
+    mangled name holds `pattern`, logged: registers a thread, stack bytes,
+    spill instructions (local stores and loads in the SASS), global loads
+    and instructions, and the blocks and warps an SM those registers leave
+    room for at `threads` threads a block."""
     import re
     from aero_tpu_torch import _sass
     out = subprocess.run(["cuobjdump", "--dump-resource-usage", str(lib)],
                          capture_output=True, text=True, check=True).stdout
-    found = re.search(r"Function (\S*frag_merge_kernelI16MidenTransitions"
-                      r"\S*):\s*REG:(\d+)\s+STACK:(\d+)", out)
-    check(found is not None, "cuobjdump lists K5's merge kernel")
+    found = re.search(r"Function (\S*" + pattern + r"\S*):\s*REG:(\d+)\s+"
+                      r"STACK:(\d+)", out)
+    check(found is not None, f"cuobjdump lists {what}")
     body = _sass.find_function(_sass.parse_functions(_sass.dump_sass(lib)),
-                               "frag_merge_kernelI16MidenTransitions")
+                               pattern)
     regs = int(found.group(2))
     # an SM holds 65 536 registers, given out a warp at a time in units of
-    # 256, and at most 16 blocks of 128 threads
+    # 256, 2 048 threads and 32 blocks
     per_warp = -(-regs * 32 // 256) * 256
-    blocks = min(16, 65536 // (per_warp * K5_THREADS // 32))
+    blocks = min(2048 // threads, 32, 65536 // (per_warp * threads // 32))
     res = dict(registers=regs, stack_bytes=int(found.group(3)),
                spill_instructions=sum(i.op in ("STL", "LDL") for i in body),
                global_loads=sum(i.op == "LDG" for i in body),
                instructions=len(body), blocks_per_sm=blocks,
-               warps_per_sm=blocks * K5_THREADS // 32)
-    log(f"[set-up] K5 miden_frag_eval merge kernel: {res['registers']} "
-        f"registers a thread, {res['stack_bytes']} B of stack, "
-        f"{res['spill_instructions']} spill instructions (STL/LDL) and "
-        f"{res['global_loads']} global loads of {res['instructions']}; "
-        f"room for {res['blocks_per_sm']} blocks of {K5_THREADS}, "
-        f"{res['warps_per_sm']} warps, an SM")
+               warps_per_sm=blocks * threads // 32)
+    log(f"[set-up] {what}: {res['registers']} registers a thread, "
+        f"{res['stack_bytes']} B of stack, {res['spill_instructions']} "
+        f"spill instructions (STL/LDL) and {res['global_loads']} global "
+        f"loads of {res['instructions']}; room for {res['blocks_per_sm']} "
+        f"blocks of {threads}, {res['warps_per_sm']} warps, an SM")
+    return res, body
+
+
+def k5_resources(lib, sass) -> dict:
+    """K5's merge kernel for MidenAir in library `lib` (`kernel_resources`);
+    the run fails on a spill. Into `sass`: "k5_point", the kernel's code (a
+    thread runs one point with no loop around it, so its whole code counts
+    once a point, its assertion loop once in it), and "k5_assertion", one
+    trip of its assertion loop."""
+    from aero_tpu_torch import _sass
+    res, body = kernel_resources(lib, "frag_merge_kernelI16MidenTransitions",
+                                 K5_THREADS, "K5 miden_frag_eval merge kernel")
     check(res["spill_instructions"] == 0 and res["stack_bytes"] == 0,
           "K5's merge kernel for MidenAir keeps a point in registers: no "
           "spill instruction, no stack")
@@ -991,12 +1028,43 @@ def k5_resources(lib, sass) -> dict:
     return res
 
 
+def k6_k7_resources(lib, sass) -> tuple:
+    """(K6's resources, K7's) in library `lib` (`kernel_resources`), K7's
+    at the proof's three points. Into `sass`: "k6_row", K6's code (one row
+    a thread, no loop around it: its whole code once a row)."""
+    from aero_tpu_torch import _sass
+    k6, body = kernel_resources(lib, "row_eval_kernelI15MidenAuxFactors",
+                                K5_THREADS, "K6 miden_aux_factors")
+    sass["k6_row"] = _sass.count_instructions(body)
+    k7, _ = kernel_resources(lib, "eval_partial_kernelILi3E", K7_THREADS,
+                             "K7 gl_eval_multi, partial sums of 3 points")
+    return k6, k7
+
+
 # the field ops the merge needs a point, as (op, operands) -> ops per
 # constraint, per assertion, once: constraint k weighed by c0_k + c1_k
 # x^adj_k and added in, the sum times zt, and an assertion's
 # (cb0_j + x^adj_j cb1_j)(col_j - b_j) dinv_j added in
 K5_MERGE_OPS = {"op_mul_vv": (2, 3, 1), "op_add_vv": (2, 2, 0),
                 "op_sub_vv": (0, 1, 0)}
+
+
+def probe_op(kind: str, const: bool) -> str:
+    """The field-op probe that prices a traced op of `kind` (an operand a
+    constant or not); NEG is gl_sub(0, x)."""
+    from aero_tpu_torch.field.sym import NEG
+    return "op_sub_vc" if kind == NEG else \
+        f"op_{kind}_{'vc' if const else 'vv'}"
+
+
+def program_ops(prog):
+    """A traced program's field ops, counted by the probe that prices
+    each."""
+    from collections import Counter
+    from aero_tpu_torch.field.sym import CONST, OPS
+    return Counter(
+        probe_op(n.kind, any(prog.nodes[a].kind == CONST for a in n.args))
+        for n in prog.nodes if n.kind in OPS)
 
 
 def k5_terms(merger, sass) -> tuple:
@@ -1017,22 +1085,15 @@ def k5_terms(merger, sass) -> tuple:
     window) and the merge's own words."""
     from collections import Counter
     from aero_tpu_torch.air import generated, symbolic
-    from aero_tpu_torch.field.sym import CONST, LOAD, NEG, OPS
+    from aero_tpu_torch.field.sym import LOAD, OPS
     _, prog = generated.kernel_for(merger.air)
     em = symbolic.emission(prog)
-
-    def probe(kind, const):           # NEG is gl_sub(0, x)
-        return ("op_sub_vc" if kind == NEG
-                else f"op_{kind}_{'vc' if const else 'vv'}")
-
     T, B = len(prog.outputs), len(merger.asrt_route)
     merge = Counter({op: per_t * T + per_b * B + once for op, (
         per_t, per_b, once) in K5_MERGE_OPS.items()})
-    ops = merge + Counter(
-        probe(n.kind, any(prog.nodes[a].kind == CONST for a in n.args))
-        for n in prog.nodes if n.kind in OPS)
+    ops = merge + program_ops(prog)
     stated = merge + Counter(
-        probe(kind, any(isinstance(a, int) for a in args))
+        probe_op(kind, any(isinstance(a, int) for a in args))
         for kind, _, args in em.steps if kind in OPS)
     need = [(n, sass[op]) for op, n in sorted(ops.items())]
     emitted = [(n, sass[op]) for op, n in sorted(stated.items())]
@@ -1124,6 +1185,99 @@ def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
     return err
 
 
+def field_k6(air, trace, rands, timer, sass, clock_hz, kernels=None,
+             what=""):
+    """K6 over a (72, n) trace against its plain version (the traced
+    program in the plain ops) and the op-by-op path on the card
+    (`_bus_row_factors`, one K1 launch a field op, over the trace's roll);
+    then, with `kernels`, timed beside its bound: the function's field ops
+    at each op's own count, and the distinct columns it reads and its
+    eight rows written, once."""
+    from aero_tpu_torch.air import generated, symbolic
+    from aero_tpu_torch.air import miden as TM
+    from aero_tpu_torch.field import gl_cuda, scalar
+    from aero_tpu_torch.field.sym import LOAD
+    name, prog = generated.row_kernel_for(air, TM._bus_row_factors)
+    n = trace.shape[-1]
+    gl_cuda.reset_launches()
+    got = air.bus_factors(trace, rands)
+    launched = dict(gl_cuda.LAUNCHES)
+    check(launched["miden_aux_factors"] == 1 and sum(launched.values()) == 1,
+          f"K6 {what}: one launch and no other")
+    nxt = torch.roll(trace, -1, dims=-1)
+    g = [scalar(r, trace.device) for r in rands]
+    err = 0
+    for k, v in enumerate(symbolic.interpret(prog, trace, nxt, None, None,
+                                             rands)):
+        err = max(err, max_abs_err(got[k], v))
+    eager = TM._bus_row_factors(trace, nxt, g)
+    err = max(err, max(max_abs_err(a, b) for a, b in zip(got, eager)))
+    del eager
+    check(err == 0, f"K6 {what}: kernel == plain == op by op on the card")
+    if kernels is None:
+        return err
+    rt = gl_cuda.device_vector(rands, trace.device)
+    ms = timer(lambda: gl_cuda.aux_factors(name, trace, rt, 8), iters=10)
+    pms = cuda_ms(lambda: symbolic.interpret(prog, trace, torch.roll(
+        trace, -1, dims=-1), None, None, rands), iters=1)
+    gl_cuda.reset_launches()
+    eager_ms = host_ms(lambda: TM._bus_row_factors(
+        trace, torch.roll(trace, -1, dims=-1), g))
+    k1 = gl_cuda.LAUNCHES["gl_elementwise"]
+    cols = len({n_.args[1] for n_ in prog.nodes if n_.kind == LOAD})
+    ops = program_ops(prog)
+    need = [(n * c, sass[op]) for op, c in sorted(ops.items())]
+    run = sass["k6_row"]
+    log(f"[phase 2b] K6 miden_aux_factors {what}: kernel {ms:.4f} ms, plain "
+        f"{pms:.3f} ms, op by op on the card {eager_ms:.3f} ms (host clock, "
+        f"{k1} K1 launches and the roll), max_abs_err {err}")
+    log(f"[phase 2b] K6 a row: the function's field ops {dict(ops)}; at "
+        f"each op's own count {sum(c * sass[o].alu for o, c in ops.items()):g}"
+        " ALU and "
+        f"{sum(c * sass[o].fma for o, c in ops.items()):g} multiply-add "
+        f"instructions; the kernel's own code executes {run.alu:g} ALU and "
+        f"{run.fma:g} multiply-add; {cols} distinct columns read")
+    record(kernels, "miden_aux_factors", f"{what}: {n} rows, {cols} columns "
+           "read, 8 rows written", err, ms, pms, (cols + 8) * n * 8, need,
+           None, clock_hz)
+    kernels["miden_aux_factors"].update(op_by_op_k1_ms=eager_ms)
+    return err
+
+
+def field_k7(blocks, zs, timer, sass, clock_hz, kernels=None, what=""):
+    """K7 on row blocks read where they lie against its plain version
+    (`eval_polys_multi_plain`); then, with `kernels`, timed beside its
+    bound: one multiply and one add a coefficient a point, each at its own
+    count, and the rows read once."""
+    from aero_tpu_torch.field import eval_polys_multi_plain, gl_cuda, to_u64
+    gl_cuda.reset_launches()
+    got = to_u64(gl_cuda.eval_multi(blocks, zs))
+    check(gl_cuda.LAUNCHES["gl_eval_multi"] == 2
+          and sum(gl_cuda.LAUNCHES.values()) == 2,
+          f"K7 {what}: one call of two launches")
+    want = eval_polys_multi_plain(blocks, zs)
+    diff = got != want
+    err = (max(abs(int(a) - int(b)) for a, b in zip(got[diff], want[diff]))
+           if diff.any() else 0)
+    w = sum(b.shape[0] for b in blocks)
+    n = blocks[0].shape[-1]
+    k = len(zs)
+    check(err == 0 and got.shape == (k, w),
+          f"K7 {what}: kernel == plain, ({k}, {w}) values")
+    if kernels is None:
+        return err
+    ms = timer(lambda: gl_cuda.eval_multi(blocks, zs), iters=10)
+    pms = cuda_ms(lambda: eval_polys_multi_plain(blocks, zs), iters=1)
+    terms = k * w * n
+    log(f"[phase 2b] K7 gl_eval_multi {what}: kernel {ms:.4f} ms (two "
+        f"launches), plain {pms:.3f} ms, max_abs_err {err}")
+    record(kernels, "gl_eval_multi", f"{what}: {w} rows x {n} at {k} points",
+           err, ms, pms, (w * n + k * w) * 8,
+           [(terms, sass["op_mul_vv"]), (terms, sass["op_add_vv"])], None,
+           clock_hz)
+    return err
+
+
 def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
     """The field kernels (csrc/field.cu) against their plain versions at
     the shapes of the 2^20-row proof, each timed beside its bound."""
@@ -1145,7 +1299,8 @@ def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    merger, frames = scale_merger(dev)
+    merger, frames, (trace, rands, main_polys, aux_polys) = \
+        scale_merger(dev)
     inputs = merger.merge_inputs(*frames, 0)
     log(f"[phase 2b] the 2^20-row proof's fragment 0, through aux_commit "
         f"and the eager constraint evaluation: {time.perf_counter() - t0:.3f}"
@@ -1156,7 +1311,19 @@ def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
     torch.cuda.empty_cache()
     field_k5(merger, frames, 0, timer, sass, clock_hz, kernels,
              "fragment 0 of the 2^20-row proof")
+    air = merger.air
     del merger, frames
+    torch.cuda.empty_cache()
+    field_k6(air, trace, rands, timer, sass, clock_hz, kernels,
+             "the 2^20-row proof's trace")
+    del trace
+    torch.cuda.empty_cache()
+    zs = [int(v) for v in np.random.default_rng(SEED).integers(
+        0, 1 << 63, 3)]
+    field_k7([main_polys, aux_polys, device_felts((8, 1 << 20), gen, dev)],
+             zs, timer, sass, clock_hz, kernels,
+             "the OOD shape, 72 + 9 + 8 row blocks")
+    del main_polys, aux_polys
     torch.cuda.empty_cache()
     field_k4(dev, gen, (72, 9, 8), 20, LOG_LDE, timer, sass, clock_hz,
              kernels)
@@ -1177,6 +1344,33 @@ def _reset_launches():
     nc.reset_launches()
     bc.reset_launches()
     fc.reset_launches()
+
+
+@contextlib.contextmanager
+def watch_copies(trace_shape, coeff_shape):
+    """Count, while the block runs, the calls of torch.roll on a card tensor
+    of `trace_shape` and of torch.cat into one of `coeff_shape`: the copies
+    K6 (the trace rolled by a row) and K7 (the trace's, aux and composition
+    coefficient rows concatenated) do without."""
+    seen = {"roll": 0, "cat": 0}
+    roll, cat = torch.roll, torch.cat
+
+    def counted_roll(x, *args, **kwargs):
+        if x.is_cuda and tuple(x.shape) == tuple(trace_shape):
+            seen["roll"] += 1
+        return roll(x, *args, **kwargs)
+
+    def counted_cat(tensors, *args, **kwargs):
+        out = cat(tensors, *args, **kwargs)
+        if out.is_cuda and tuple(out.shape) == tuple(coeff_shape):
+            seen["cat"] += 1
+        return out
+
+    torch.roll, torch.cat = counted_roll, counted_cat
+    try:
+        yield seen
+    finally:
+        torch.roll, torch.cat = roll, cat
 
 
 def _prove(src: str, min_rows: int, dev):
@@ -1200,7 +1394,12 @@ def _verify(res, src: str) -> None:
 # the kernels of the main path; K3 left it in PR 8 (K5 merges a MidenAir
 # fragment) and keeps its row in the `kernels` line with its launches
 FIELD_KERNELS = ("gl_elementwise", "gl_scan", "gl_batch_inv",
-                 "gl_deep_combine", "miden_frag_eval")
+                 "gl_deep_combine", "miden_frag_eval", "miden_aux_factors",
+                 "gl_eval_multi")
+# a proof's launches of K6 (one call) and K7 (one call of two launches),
+# and the most K1 launches a 2^20-row proof may make (853 while the bus
+# factors and the OOD evaluation ran op by op)
+PROOF_K6, PROOF_K7, PROOF_K1_MAX = 1, 2, 250
 PATH_KERNELS = ("gl_colntt", "blake2s_hash_columns", "blake2s_merge_level",
                 "blake2s_grind_pow") + FIELD_KERNELS
 COUNTED_KERNELS = PATH_KERNELS + ("gl_constraint_merge",)
@@ -1228,6 +1427,10 @@ def phase_golden(dev):
         check(counts[name] > 0, f"{name} launched in the golden proof")
     check(counts["gl_constraint_merge"] == 0,
           "the golden proof merges through K5, not K3")
+    check(counts["miden_aux_factors"] == PROOF_K6
+          and counts["gl_eval_multi"] == PROOF_K7,
+          "the golden proof builds its bus factors in one K6 launch and "
+          "evaluates its OOD rows in one K7 call")
     bench = bench_gpu.bench_proof(device=dev)
     check(bench_gpu.check_golden(bench.once) == digest,
           "bench_proof's proof == the golden digest")
@@ -1257,12 +1460,27 @@ def phase_scale(dev, kernels, proof_out):
     log("[phase 4] steady span seconds: " + json.dumps(r.steady.spans))
     _reset_launches()
     t0 = time.perf_counter()
-    res = _prove(r.prep.src, 1 << 20, dev)
-    torch.cuda.synchronize()
+    with watch_copies((72, 1 << 20), (72 + 9 + 8, 1 << 20)) as copies:
+        res = _prove(r.prep.src, 1 << 20, dev)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = _launches()
     log(f"[phase 4] sdk.prove, 2^20 rows (VM run, proof, protobuf): {dt:.3f} "
         f"s; launches {counts}")
+    log(f"[phase 4] a 2^20-row proof launches K1 {counts['gl_elementwise']} "
+        f"times (at most {PROOF_K1_MAX}), K6 {counts['miden_aux_factors']} "
+        f"(one call), K7 {counts['gl_eval_multi']} (one call of two "
+        f"launches); calls on the card of torch.roll of the (72, 2^20) "
+        f"trace and of torch.cat into (89, 2^20) coefficient rows: "
+        f"{copies}")
+    check(counts["miden_aux_factors"] == PROOF_K6
+          and counts["gl_eval_multi"] == PROOF_K7
+          and counts["gl_elementwise"] <= PROOF_K1_MAX,
+          f"the 2^20-row proof makes one K6 launch, one K7 call and at most "
+          f"{PROOF_K1_MAX} K1 launches")
+    check(copies == {"roll": 0, "cat": 0},
+          "no roll of the trace and no concatenation of the coefficient "
+          "rows on the card path")
     check(res.native_proof.to_bytes() == data
           and res.native_pub.to_bytes() == r.prep.pub.to_bytes(),
           "sdk.prove's proof and public inputs == the bench's")
@@ -1408,9 +1626,13 @@ def phase_parser(dev) -> None:
 
 # a rank's counted stages run no scan: the aux segment, whose bus is K2's
 # scans, is built in the set-up
+# the dry run builds its aux segment (K6, K2) in its set-up, before its
+# counts are reset, and evaluates no OOD point (K7)
 DRYRUN_KERNELS = ("gl_colntt", "blake2s_hash_columns",
                   "blake2s_merge_level") + tuple(
-                      k for k in FIELD_KERNELS if k != "gl_scan")
+                      k for k in FIELD_KERNELS
+                      if k not in ("gl_scan", "miden_aux_factors",
+                                   "gl_eval_multi"))
 LOG_DRYRUN_ROWS = 18
 DRYRUN_WORLDS = (1, 4)
 
@@ -1522,9 +1744,19 @@ def phase_dryrun_shapes(dev, gen) -> None:
                                     f"2^{log_ld}"))
         del merger, frames
         torch.cuda.empty_cache()
+    # the aux build of each dry run (in its set-up): K6 over the trace
+    from aero_tpu_torch.air.miden import MidenAir
+    rng = np.random.default_rng(SEED + LOG_DRYRUN_ROWS)
+    for rows in (64, 1 << LOG_DRYRUN_ROWS):
+        rands = [int(v) for v in rng.integers(0, 1 << 63, 16)]
+        worst = max(worst, field_k6(object.__new__(MidenAir),
+                                    device_felts((72, rows), gen, dev),
+                                    rands, None, None, None,
+                                    what=f"{rows} rows"))
     log(f"[phase 7] shapes of every world: K1 at 2^{LOG_DRYRUN_ROWS}, K2 on "
         f"the aux scans and divisors, K3, K4 and K5 on fragments of 2^20 "
-        f"and 2^19 points: kernel == plain, max_abs_err {worst}")
+        f"and 2^19 points, K6 on traces of 64 and 2^{LOG_DRYRUN_ROWS} rows: "
+        f"kernel == plain, max_abs_err {worst}")
 
 
 def dryrun_merger(dev, gen, log_m: int, log_ld: int):
@@ -1935,8 +2167,9 @@ def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
     `repeats` proofs of one prepared trace in a row and one more after the
     program was executed anew, each with its stage seconds, the seconds the
     Python collector ran, its collections and the allocator's reserved
-    bytes; then one more proof under `torch.profiler` (device kernel time,
-    launches, idle share, the kernels that take most)."""
+    bytes; one more stage by stage, with its K1 launches by stage; then one
+    more proof under `torch.profiler` (device kernel time, launches, idle
+    share, the kernels that take most)."""
     from torch.profiler import ProfilerActivity, profile
     src = long_fib_source(((1 << 20) - 64) // 12)
     prep = bench_gpu._prepare(src, [0, 1], 1 << 20, 16, dev)
@@ -1976,6 +2209,18 @@ def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
         one(repeats + 1, True)
     finally:
         gc.callbacks.remove(on_gc)
+    # one more proof stage by stage: where the K1 launches that remain are
+    from aero_tpu_torch.field import gl_cuda
+    from aero_tpu_torch.prover import prover as PR
+    st = PR.ProverState(pub_inputs=prep.pub, device=str(dev),
+                        main_trace=prep.trace)
+    k1 = {}
+    for i, stage in enumerate(PR.STAGES):
+        gl_cuda.reset_launches()
+        PR._run_stage(i, prep.air, st)
+        k1[stage] = gl_cuda.LAUNCHES["gl_elementwise"]
+    del st
+    log(f"[profile] K1 launches of a proof by stage: {json.dumps(k1)}")
     # the profiler's first session of the process: a later one has been
     # seen to report no device events at all (PR 8's first run)
     mul_kernels = bench_gpu.mul_launches(device=dev)
@@ -1986,6 +2231,9 @@ def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
         run = bench_gpu._timed_prove(prep)
     launches, dev_s, rows = bench_gpu._device_kernels(prof)
     check(launches > 0, "torch.profiler saw the device's kernels")
+    log(f"[profile] a proof launches K1 {run.launches['gl_elementwise']} "
+        f"times, K6 {run.launches['miden_aux_factors']}, K7 "
+        f"{run.launches['gl_eval_multi']} (one call of two launches)")
     log("[profile] under torch.profiler: " + json.dumps({
         "seconds": run.seconds, "device_kernel_seconds": dev_s,
         "device_launches": launches,
@@ -2028,6 +2276,7 @@ def main(argv=None) -> int:
     log(f"[set-up] kernels built in {time.perf_counter() - t0:.3f} s: {lib}")
     sass = read_sass_counts(lib, probe)
     k5_res = k5_resources(lib, sass)
+    k6_res, k7_res = k6_k7_resources(lib, sass)
     # the C++ VM builds itself at its first run; keep that out of phase 3
     from aero_tpu_torch.vm import execute_full, fibonacci_source
     t0 = time.perf_counter()
@@ -2055,6 +2304,12 @@ def main(argv=None) -> int:
         "miden_frag_eval": dict(route="cuda", source=K5_SRC,
                                 replaces=K5_REPLACES[0],
                                 note=K5_REPLACES[1], **k5_res),
+        "miden_aux_factors": dict(route="cuda", source=K6_SRC,
+                                  replaces=K6_REPLACES[0],
+                                  note=K6_REPLACES[1], **k6_res),
+        "gl_eval_multi": dict(route="cuda", source=K7_SRC,
+                              replaces=K7_REPLACES[0], note=K7_REPLACES[1],
+                              **k7_res),
     }
     kernels["gl_constraint_merge"]["note"] += "; " + K3_OFF_PATH
     phase_blake2s(dev, rng, kernels, sass, clock_hz)
@@ -2085,7 +2340,8 @@ def main(argv=None) -> int:
                                     "stack_bytes", "spill_instructions",
                                     "global_loads", "blocks_per_sm",
                                     "warps_per_sm", "words_read_per_point",
-                                    "with_pow_ms", "eager_k1_k3_ms")
+                                    "with_pow_ms", "eager_k1_k3_ms",
+                                    "op_by_op_k1_ms")
             if key in k}}
         for name, k in kernels.items()]}))
     print(smi)

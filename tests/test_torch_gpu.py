@@ -667,3 +667,76 @@ def test_frag_eval_refuses_a_stale_generated_file(cuda_device, monkeypatch):
     merger.air = object.__new__(Edited)
     with pytest.raises(ValueError, match="no generated kernel"):
         merger.k5_inputs(*frames, 0)
+
+
+@pytest.mark.parametrize("n,pad", [(64, 0), (1000, 0), (1000, 7),
+                                   (1 << 16, 0), (1 << 18, 5)])
+def test_aux_factors_kernel_matches_plain_and_op_by_op(cuda_device, n, pad):
+    """K6 over a random (72, n) trace, read in place (as a view of a wider
+    array with `pad` extra columns): its eight rows equal the traced
+    program in the plain ops (`symbolic.interpret`) and `_bus_row_factors`
+    op by op on the card (one K1 launch a field op) over the trace's roll
+    by one row."""
+    from aero_tpu_torch.air import generated, symbolic
+    from aero_tpu_torch.air import miden as TM
+    from aero_tpu_torch.field import gl_cuda, scalar
+    rng = np.random.default_rng(n + pad)
+    wide = _felts(rng, (72, n + pad), cuda_device)
+    trace = wide[:, :n]
+    rands = [int(v) for v in rng.integers(0, P, 16, np.uint64)]
+    air = object.__new__(TM.MidenAir)
+    name, prog = generated.row_kernel_for(air, TM._bus_row_factors)
+    gl_cuda.reset_launches()
+    got = air.bus_factors(trace, rands)
+    assert gl_cuda.LAUNCHES["miden_aux_factors"] == 1
+    assert sum(gl_cuda.LAUNCHES.values()) == 1
+    nxt = torch.roll(trace, -1, dims=-1)
+    plain = symbolic.interpret(prog, trace, nxt, None, None, rands)
+    eager = TM._bus_row_factors(trace, nxt,
+                                [scalar(r, cuda_device) for r in rands])
+    for k in range(8):
+        assert torch.equal(got[k], plain[k]), k
+        assert torch.equal(got[k], eager[k]), k
+
+
+def test_build_aux_trace_on_card_equals_cpu(cuda_device):
+    """The aux build of a real 64-row trace on the card (K6, then the scans)
+    equals the CPU's, with one K6 launch and no roll of the trace."""
+    from aero_tpu_torch.air import miden as TM
+    from aero_tpu_torch.field import gl_cuda
+    from aero_tpu_torch.sdk import DEFAULT_OPTIONS
+    from aero_tpu_torch.vm import execute_full, fibonacci_source, program_hash
+    src = fibonacci_source(10)
+    trace, out, ovf = execute_full(src, [0, 1], min_rows=64)
+    pub = TM.make_public_inputs(program_hash(src), [0, 1], out, overflow=ovf)
+    air = TM.MidenAir(64, pub, DEFAULT_OPTIONS, program=src)
+    rands = [7919 * (i + 1) ** 2 for i in range(16)]
+    want = air.build_aux_trace(from_u64(trace, "cpu"), rands)
+    gl_cuda.reset_launches()
+    got = air.build_aux_trace(from_u64(trace, cuda_device), rands)
+    assert gl_cuda.LAUNCHES["miden_aux_factors"] == 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("widths,n,k,strided", [
+    ((72, 9, 8), 1 << 10, 3, False), ((72, 9, 8), 1 << 20, 3, False),
+    ((1,), 1, 1, False), ((5, 3), 8192, 4, False), ((7,), 1 << 14, 2, True),
+    ((3, 0, 6, 2), 1000, 3, True), ((17,), 8193, 3, False)])
+def test_eval_multi_kernel_matches_plain(cuda_device, widths, n, k, strided):
+    """K7 on row blocks read where they lie (with `strided`, views of a
+    wider array): equal to `eval_polys_multi_plain`, in one call of two
+    launches."""
+    from aero_tpu_torch.field import eval_polys_multi, eval_polys_multi_plain
+    from aero_tpu_torch.field import gl_cuda
+    rng = np.random.default_rng(n * k + len(widths))
+    blocks = []
+    for w in widths:
+        full = _felts(rng, (w, n + (3 if strided else 0)), cuda_device)
+        blocks.append(full[:, 1:n + 1] if strided else full)
+    zs = [int(v) for v in rng.integers(0, P, k, np.uint64)]
+    gl_cuda.reset_launches()
+    got = eval_polys_multi(blocks, zs)
+    assert gl_cuda.LAUNCHES["gl_eval_multi"] == 2
+    assert sum(gl_cuda.LAUNCHES.values()) == 2
+    assert got.shape == (k, sum(widths))
+    assert np.array_equal(got, eval_polys_multi_plain(blocks, zs))
