@@ -59,6 +59,8 @@ SIGNATURES = {
     # csrc/ntt.cu
     "gl_colntt": [_P, _P, _P, _P, _I32, _I32, _I64, _I64, _I64, _I64, _I64,
                   _I64, _I64, _I64, _I64, _P],
+    "gl_colntt_lde": [_P] * 6 + [_I32, _I32, _I64, _I64, _I64, _I32, _I64,
+                                 _I64, _I64, _I64, _P],
     # csrc/blake2s.cu
     "blake2s_words": [_P, _I64, _I64, _I64, _P, _P],
     "blake2s_hash_columns": [_P, _I64, _I64, _P, _P],

@@ -2,8 +2,8 @@
 
 `cuobjdump -sass` lists the SASS of every kernel in the library that
 `_build.build()` made. `chip_smoke.py` turns these counts into each kernel's
-arithmetic bound: instructions per unit of work (one NTT butterfly, one
-blake2s compress) times the units the call needs, over the card's rates.
+arithmetic bound: instructions per unit of work (one blake2s compress, one
+field op) times the units the call needs, over the card's rates.
 A Hopper SM starts at most 128 thread-instructions a clock (four
 schedulers, one warp instruction each), of which at most 64 go to the
 integer ALU lanes (IADD3, LOP3, SHF, ISETP, SEL, LEA ...) and at most 64 to
@@ -16,9 +16,13 @@ uniform datapath), `memory` and `control`.
   counted whole: `count_instructions(function_body)`.
 - A kernel whose work sits in a loop is counted by that loop: `loops()`
   finds each backward branch and the instructions between its target and
-  itself; the caller picks the loop by what it holds (the butterfly loop is
-  the one that both reads and writes shared memory) and divides by the
-  units per trip (two shared-memory stores per butterfly).
+  itself; the caller picks the loop by what it holds and divides by the
+  units per trip.
+- Kernel 1, the NTT, is bound by what the transform needs, not by its code:
+  `ntt_field_ops` counts the field multiplies (those by a twiddle +-2^e
+  apart, which may be done by shifts), adds and subtracts from the shape
+  alone, and `chip_smoke.py` prices each at its straight-line count from
+  the field-op probe.
 """
 
 from __future__ import annotations
@@ -146,27 +150,37 @@ def loops(body: List[Instr]) -> List[List[Instr]]:
     return out
 
 
-def butterfly_counts(body: List[Instr]) -> Counts:
-    """Instructions per butterfly of the NTT pass: the innermost loop that
-    reads and writes shared memory (a butterfly stores its two results),
-    divided by the butterflies of one trip."""
-    cands = [lp for lp in loops(body)
-             if any(i.op == "LDS" for i in lp)
-             and any(i.op == "STS" for i in lp)]
-    if not cands:
-        raise RuntimeError("SASS: no butterfly loop found in the NTT kernel")
-    # innermost loops only: drop a loop that holds another candidate
-    inner = [lp for lp in cands
-             if not any(o is not lp and o[0].addr >= lp[0].addr
-                        and o[-1].addr <= lp[-1].addr and len(o) < len(lp)
-                        for o in cands)]
-    lp = max(inner, key=len)     # the unrolled main loop, not its remainder
-    c = count_instructions(lp)
-    per_trip = c.shared_stores // 2
-    if per_trip < 1 or c.shared_stores % 2:
-        raise RuntimeError(f"SASS: butterfly loop has {c.shared_stores} "
-                           "shared stores, expected two per butterfly")
-    if per_trip > 1:
-        c = Counts(*(v // per_trip for v in (c.alu, c.fma, c.uniform,
-                                             c.memory, c.control)), 2)
-    return c
+def ntt_field_ops(log_n: int, batch: int = 1, log_blowup: int = 0,
+                  lde: bool = False, max_l: int = 4096,
+                  passes: int | None = None) -> Dict[str, int]:
+    """The field operations a transform of 2^log_n points needs, `batch`
+    rows, counted from its shape: the butterflies of each radix-2 stage,
+    each an add and a subtract and, unless its twiddle is 1, a multiply
+    (stage s of a column transform has one twiddle index j < 2^(s-1) a
+    block of 2^s, and j = 0 is 1); one multiply an element for each cross
+    table between passes. "mul_pow2": those of the multiplies whose
+    twiddle is a root of unity of order at most 64, which is +-2^e (at
+    stage s, min(2^(s-1), 32) - 1 of its indices); the cross tables count
+    as general multiplies. With `lde`, the coset LDE of
+    2^(log_n - log_blowup) coefficients: the first log_blowup stages only
+    copy (the padded input is 1 - 2^-log_blowup zeros) and need nothing,
+    and each coefficient takes one multiply by offset^i. With `passes`, the
+    first `passes` passes only, each with the cross table it applies."""
+    from .ntt.tables import pass_lengths
+    n = 1 << log_n
+    logs = [L.bit_length() - 1 for L in pass_lengths(n, max_l)]
+    if lde and logs and log_blowup > logs[0]:
+        raise ValueError("the copying stages reach past the first pass")
+    done = logs if passes is None else logs[:passes]
+    bfly = mul = pow2 = 0
+    for k, lg in enumerate(done):
+        for s in range((log_blowup if lde and k == 0 else 0) + 1, lg + 1):
+            bfly += n // 2
+            mul += n // 2 - (n >> s)
+            pow2 += (min(1 << (s - 1), 32) - 1) * (n >> s)
+        if k < len(logs) - 1:
+            mul += n
+    if lde and done:
+        mul += n >> log_blowup
+    return {"mul": batch * mul, "mul_pow2": batch * pow2,
+            "add": batch * bfly, "sub": batch * bfly}

@@ -1,13 +1,16 @@
 // The machine code of one Goldilocks field op, for the bounds that count
-// the field ops a function needs (chip_smoke.py: K5, the scan and the batch
-// inversion). Kernel probe_<op>_<operands> applies one op of
+// the field ops a function needs (chip_smoke.py: kernel 1, K5, the scan and
+// the batch inversion). Kernel probe_<op>_<operands> applies one op of
 // goldilocks.cuh kOps times, straight-line, to kValues values held in
 // registers, between the same loads and stores as probe_none, which copies
 // in to out and applies none; (its instructions - probe_none's) / kOps are
 // one op's, pipe by pipe, with no loop, address or memory instruction among
 // them. "vv": both
 // operands vary; "vc": the second is a constant, as where a traced program
-// adds or multiplies by one.
+// adds or multiplies by one. probe_mul_pow2: the multiply by a root of unity
+// of order at most 64, +-2^e with e = 3, 6, .., 93 (`gl_mul_pow2`), the
+// 31 exponents in turn; kernel 1's bound prices those twiddles at the
+// cheaper of it and probe_mul_vv.
 //
 // chip_smoke.py builds this file into a cubin of its own and reads its SASS;
 // it is not part of the kernel library and is never launched.
@@ -42,3 +45,4 @@ FIELD_OP_PROBE(probe_sub_vv, gl_sub(a, b))
 FIELD_OP_PROBE(probe_sub_vc, gl_sub(a, c))
 FIELD_OP_PROBE(probe_mul_vv, gl_mul(a, b))
 FIELD_OP_PROBE(probe_mul_vc, gl_mul(a, c))
+FIELD_OP_PROBE(probe_mul_pow2, gl_mul_pow2(a, 3 * (1 + r % 31)))

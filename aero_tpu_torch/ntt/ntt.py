@@ -7,11 +7,13 @@ three beyond, the size alone decides); a CPU tensor takes the plain
 radix-2 decimation-in-time transform below. Both are the same DFT, so
 their canonical outputs are equal bit for bit.
 
-The coset LDE folds the offset into the coefficients (c_i * offset^i) and
-runs one zero-padded size-n*blowup transform, the single-NTT formulation
-of `aero_tpu.ntt.lde` (its coset-by-coset TPU formulation gives the same
-values), at every size: 2^24 coefficients at blowup 8 are one transform of
-2^27 points.
+The coset LDE is the single-NTT formulation of `aero_tpu.ntt.lde` (its
+coset-by-coset TPU formulation gives the same values): the offset folded
+into the coefficients (c_i * offset^i), zero-padded to n*blowup points and
+transformed, at every size (2^24 coefficients at blowup 8 are one
+transform of 2^27 points). On the card that is `ntt_cuda.lde_cuda`, whose
+first pass reads the coefficients and never the padding; `coset_pad` is
+its plain rendering, which the CPU path runs.
 
 No size goes to the int8 tensor-core 4-step (`ntt_mxu.py`), which
 `aero_tpu.ntt` dispatches 2^16..2^20 to on the TPU. On an NVIDIA H100 80GB
@@ -34,7 +36,7 @@ from ..spec import field as F
 from ..field import from_u64, mul, power_series, scalar
 from ..field.gl import add_plain, mul_plain, sub_plain
 from . import tables
-from .ntt_cuda import ntt_cuda
+from .ntt_cuda import lde_cuda, ntt_cuda
 
 
 def ntt_plain(x: torch.Tensor, invert: bool = False) -> torch.Tensor:
@@ -93,7 +95,9 @@ def lde(coeffs: torch.Tensor, log_blowup: int,
         offset: int = F.DOMAIN_OFFSET) -> torch.Tensor:
     """Evaluate degree-<n polynomials (..., n) over the coset
     offset*<w_{n*blowup}>; returns (..., n << log_blowup), natural order."""
-    return ntt(coset_pad(coeffs, log_blowup, offset))
+    if coeffs.is_cuda:
+        return lde_cuda(coeffs.contiguous(), log_blowup, offset)
+    return ntt_plain(coset_pad(coeffs, log_blowup, offset))
 
 
 def lde_from_evals(evals: torch.Tensor, log_blowup: int,

@@ -5,9 +5,13 @@ arrays) and the table builders of `aero_tpu/ntt/ntt_pallas.py:64-119`
 (`_bitrev`, `_tables_np`, `_expanded_stage_tw`), which the JAX package
 cannot lend without importing jax. Three changes: a pass may be 4096 long
 (the TPU kernel stopped at 2048), so two passes cover n up to 2^24;
-`pack_stage_tw` packs the per-stage twiddles the way the CUDA kernel
+`pack_stage_tw` packs the per-stage twiddles into one table, the way the
+plain radix-2 transform (`ntt.ntt_plain`, through `radix2_twiddles`)
 reads them; and `three_level_split` says how a longer transform is cut
-into an outer pass and a two-pass inner transform. These functions take the
+into an outer pass and a two-pass inner transform. The CUDA kernel reads
+none of these arrays: its tables (a pass's w_L^e, the cross tables, the
+LDE's offset powers) are made on the card (`ntt_cuda.py`), and
+`tables_np` is their plain version. These functions take the
 pass limit as an argument (`MAX_L` by default), so that the levels can be
 exercised at small sizes. The last section holds the tables of the
 int8-limb 4-step transform (`ntt_mxu.py`; `aero_tpu/ntt/ntt_mxu.py:46-79`).
@@ -21,7 +25,7 @@ import numpy as np
 
 from ..spec import field as F
 
-MAX_L = 4096            # longest single-pass NTT (4096 x 8 B of shared memory)
+MAX_L = 4096            # longest pass of kernel 1 (csrc/ntt.cu: L * TC <= 2^14)
 
 _P = np.uint64(F.P)
 _M32 = np.uint64(0xFFFFFFFF)
@@ -109,6 +113,32 @@ def pack_stage_tw(expanded: np.ndarray, L: int) -> np.ndarray:
                            for s in range(1, log_L + 1)])
 
 
+def two_pass_split(n: int, max_l: int = MAX_L):
+    """(n1, n2) of the two-pass transform of size n: n1 = 2^ceil(log2(n)/2)
+    columns, n2 = n / n1 rows. Raises past two passes of `max_l`."""
+    log_n = n.bit_length() - 1
+    log1 = (log_n + 1) // 2
+    n1, n2 = 1 << log1, n >> log1
+    if n1 > max_l or n2 > max_l:
+        raise ValueError(f"NTT size {n} exceeds two passes of {max_l}")
+    return n1, n2
+
+
+def pass_lengths(n: int, max_l: int = MAX_L) -> list:
+    """The lengths of kernel 1's passes of a size-n transform, first pass
+    first: [n2, n1] where two passes of `max_l` reach n, else the outer
+    pass and the inner transform's two, [n3, n2, n1]; [] for n = 1."""
+    if n == 1:
+        return []
+    log_n = n.bit_length() - 1
+    if (log_n + 1) // 2 <= max_l.bit_length() - 1:
+        n1, n2 = two_pass_split(n, max_l)
+        return [n2, n1]
+    n3, n_inner = three_level_split(n, max_l)
+    n1, n2 = two_pass_split(n_inner, max_l)
+    return [n3, n2, n1]
+
+
 def three_level_split(n: int, max_l: int = MAX_L):
     """(n3, n_inner) of a transform too long for two passes of `max_l`:
     n = n3 * n_inner, an outer pass of size n3 <= max_l and an inner
@@ -134,10 +164,8 @@ def tables_np(n: int, invert: bool, max_l: int = MAX_L):
     NTT over j1 with root w^n2 (stage table p1), landing on D[k1][k2], whose
     row-major flattening is the natural-order result."""
     log_n = n.bit_length() - 1
-    log1 = (log_n + 1) // 2
-    n1, n2 = 1 << log1, n >> log1
-    if n1 > max_l or n2 > max_l:
-        raise ValueError(f"NTT size {n} exceeds two passes of {max_l}")
+    n1, n2 = two_pass_split(n, max_l)
+    log1 = n1.bit_length() - 1
     w = F.get_root_of_unity(log_n)
     if invert:
         w = F.inv(w)

@@ -14,8 +14,13 @@ each of which raises on a failed check (so the script exits non-zero):
   1. blake2s kernel vs its plain PyTorch version vs hashlib, and the PoW
      grind vs a host scan, at 2^16 leaves and at the shapes the 2^20-row
      proof launches (72 x 2^23 and 9 x 2^23 leaves, a 2^23 -> 2^22 level);
-  2. NTT kernel vs its plain versions, round trips, a coset LDE, and the
-     72 x 2^23 transform of the 2^20-row proof; 2b: the field kernels K1-K7
+  2. NTT kernel vs its plain versions, round trips, the coset LDE route
+     (`gl_colntt_lde`, then `gl_colntt`) at 2^10..2^20 coefficients x
+     blowup 2..16, the 72 x 2^23 transform, the proof's main LDE (72 x
+     2^20 at blowup 8) and its first pass alone (the LDE entry) against
+     the plain rendering, and 1 x 2^24 -> 2^27 against the padded
+     transform; 2b: the field
+     kernels K1-K7
      (`csrc/field.cu`; K5 generated from MidenAir's constraints,
      `csrc/air_miden.cu`; K6 from its bus factors, `csrc/aux_miden.cu`;
      K7 `csrc/eval_multi.cu`) vs their plain versions at the 2^20-row
@@ -34,8 +39,10 @@ each of which raises on a failed check (so the script exits non-zero):
      program through `aero_tpu_torch.sdk.prove(min_rows=2^20)`: equal bytes
      all three, the SDK's must verify, and its launches are the ones the
      `kernels` line reports: one K6 launch, one K7 call (two launches), at
-     most 250 K1 launches, and no `torch.roll` of the trace nor `torch.cat`
-     of the coefficient rows on the card; prints stage times, wall clocks,
+     most 250 K1 launches, and no `torch.roll` of the trace, no `torch.cat`
+     of the coefficient rows and no zero-padded LDE input (`coset_pad`,
+     `torch.zeros` of rows of 2^23) on the card; prints stage times, wall
+     clocks,
      peak memory, sha256 (`--proof-out FILE` writes the proof with its
      public inputs);
   5. the served path: a `SubmissionServer` on an ephemeral port accepts the
@@ -80,8 +87,8 @@ each of which raises on a failed check (so the script exits non-zero):
      metric record, and the proof records from the times of phases 3 and 4.
 
 `--profile` runs the set-up and no phase: it proves the 2^20-row trace six
-times and prints each proof's stage seconds, collector and allocator
-figures, the fifth stage by stage with its K1 launches by stage, the last
+times and prints each proof's stage seconds, the seconds each stage spent
+building NTT tables, collector and allocator figures, the fifth stage by stage with its K1 launches by stage, the last
 one under `torch.profiler` (`profile_scale`), and its K1, K6 and K7
 launches.
 
@@ -89,11 +96,15 @@ Kernel comparisons are exact (tolerance 0): finite-field and hash
 arithmetic. Launch counters are reset right before each proof and read
 right after it. Each kernel's bound is the larger of its bytes (inputs read
 once, outputs written once) over 3.35 TB/s and its instructions (SASS
-counts per butterfly or compress, by pipe, times the work of the call) over
-what 132 SMs take at the card's maximum SM clock: 64 integer-ALU lanes, 64
-multiply-add lanes and 128 scheduler slots each. Where a bound counts the
-field ops a function needs (K5, the scan, the batch inversion), each op is
-priced at its own straight-line count, read from the field-op probe. The third-to-last line is
+counts per compress or unit of a field kernel, by pipe, times the work of
+the call) over what 132 SMs take at the card's maximum SM clock: 64
+integer-ALU lanes, 64 multiply-add lanes and 128 scheduler slots each.
+Where a bound counts the field ops a function needs (kernel 1 from its
+shape alone, `_sass.ntt_field_ops`; K5, the scan, the batch inversion),
+each op is priced at its own straight-line count, read from the field-op
+probe (a multiply of kernel 1's by a twiddle +-2^e at the cheaper for the
+call of the general multiply's count and that of the multiply by shifts,
+`gl_mul_pow2`). The third-to-last line is
 a JSON object with one entry per kernel of the proof path; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -242,6 +253,16 @@ def device_felts(shape, gen, dev) -> torch.Tensor:
     return hi.bitwise_left_shift_(32).bitwise_or_(lo)
 
 
+def sm_clocks(terms) -> float:
+    """SM clocks the instructions of `terms` ((units, counts a unit)
+    pairs) take at the least: the fuller of the two 64-lane pipes or the
+    128 scheduler slots."""
+    alu = sum(u * c.alu for u, c in terms)
+    fma = sum(u * c.fma for u, c in terms)
+    total = sum(u * c.total for u, c in terms)
+    return max(alu / 64, fma / 64, total / 128)
+
+
 def bound(nbytes: int, terms, clock_hz: float):
     """(least milliseconds the card could take, what sets it): the bytes
     over the memory rate, or the instructions of `terms`, (units of work,
@@ -249,13 +270,44 @@ def bound(nbytes: int, terms, clock_hz: float):
     the fuller of the two 64-lane pipes or the 128 scheduler slots
     (`_sass.Counts.sm_clocks`)."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    alu = sum(u * c.alu for u, c in terms)
-    fma = sum(u * c.fma for u, c in terms)
-    total = sum(u * c.total for u, c in terms)
-    clocks = max(alu / 64, fma / 64, total / 128)
-    by_ops = clocks / (SMS * clock_hz) * 1e3
+    by_ops = sm_clocks(terms) / (SMS * clock_hz) * 1e3
     return ((by_bytes, "bytes") if by_bytes >= by_ops
             else (by_ops, "operations"))
+
+
+def ntt_terms(sass, log_n: int, batch: int, **kw) -> list:
+    """Kernel 1's bound terms for a call, from its shape alone: the field
+    multiplies, adds and subtracts the transform (or, with lde=True, the
+    coset LDE; with passes=k, its first k passes) needs
+    (`_sass.ntt_field_ops`), each at its straight-line count from the
+    field-op probe. The multiplies by a twiddle +-2^e are split between
+    the general multiply and the one by shifts (`gl_mul_pow2`) where the
+    call takes the fewest clocks: each pipe's load is linear in the share
+    f done by shifts, so the least of their maximum lies at f = 0, f = 1
+    or where two pipes' loads cross."""
+    from aero_tpu_torch import _sass
+    ops = _sass.ntt_field_ops(log_n, batch, **kw)
+    rest = [(ops["mul"] - ops["mul_pow2"], sass["op_mul_vv"]),
+            (ops["add"], sass["op_add_vv"]), (ops["sub"], sass["op_sub_vv"])]
+
+    def terms(f):
+        return rest + [(ops["mul_pow2"] * (1 - f), sass["op_mul_vv"]),
+                       (ops["mul_pow2"] * f, sass["op_mul_pow2"])]
+
+    def loads(f):
+        t = terms(f)
+        return [sum(u * c.alu for u, c in t) / 64,
+                sum(u * c.fma for u, c in t) / 64,
+                sum(u * c.total for u, c in t) / 128]
+
+    a, b = loads(0), loads(1)
+    cands = [0, 1]
+    for i in range(3):
+        for j in range(i):
+            slope = (b[i] - a[i]) - (b[j] - a[j])
+            if slope and 0 < (a[j] - a[i]) / slope < 1:
+                cands.append((a[j] - a[i]) / slope)
+    return terms(min(cands, key=lambda f: max(loads(f))))
 
 
 def record(kernels, name, shape, err, ms, plain_ms, nbytes, units, per_unit,
@@ -294,30 +346,32 @@ def start_probe_build():
 
 def field_op_counts(job, cubin) -> dict:
     """Instructions of one field op by pipe, add / sub / mul with two
-    varying operands ("vv") or a constant second one ("vc"): each probe
-    kernel's count less probe_none's, over its PROBE_OPS ops."""
+    varying operands ("vv") or a constant second one ("vc"), and the
+    multiply by a root of unity of order at most 64 by shifts ("mul_pow2"):
+    each probe kernel's count less probe_none's, over its PROBE_OPS ops."""
     from aero_tpu_torch import _sass
     _, err = job.communicate()
     check(job.returncode == 0, f"nvcc builds {PROBE_SRC}: {err}")
     fns = _sass.parse_functions(_sass.dump_sass(cubin))
     base = _sass.count_instructions(fns["probe_none"])
     out = {}
-    for op in ("add", "sub", "mul"):
-        for operands in ("vv", "vc"):
-            c = _sass.count_instructions(fns[f"probe_{op}_{operands}"])
-            log(f"[set-up] probe_{op}_{operands}: {c}; probe_none: {base}")
-            d = _sass.Counts(*((getattr(c, f) - getattr(base, f)) / PROBE_OPS
-                               for f in ("alu", "fma", "uniform", "memory",
-                                         "control")), 0)
-            check(d.memory == 0 and d.alu > 0,
-                  f"the {op} probe adds arithmetic only")
-            out[f"op_{op}_{operands}"] = d
+    for op in ("add_vv", "add_vc", "sub_vv", "sub_vc", "mul_vv", "mul_vc",
+               "mul_pow2"):
+        c = _sass.count_instructions(fns[f"probe_{op}"])
+        log(f"[set-up] probe_{op}: {c}; probe_none: {base}")
+        d = _sass.Counts(*((getattr(c, f) - getattr(base, f)) / PROBE_OPS
+                           for f in ("alu", "fma", "uniform", "memory",
+                                     "control")), 0)
+        check(d.memory == 0 and d.alu > 0,
+              f"the {op} probe adds arithmetic only")
+        out[f"op_{op}"] = d
     return out
 
 
 def read_sass_counts(lib, probe) -> dict:
-    """Instructions per NTT butterfly and per blake2s compress, by pipe,
-    read from the SASS of the built library."""
+    """Instructions per blake2s compress and per unit of the field kernels,
+    by pipe, read from the SASS of the built library, and those of one field
+    op from the probe (which price kernel 1's bound, `ntt_terms`)."""
     from aero_tpu_torch import _sass
     fns = _sass.parse_functions(_sass.dump_sass(lib))
     merge = _sass.count_instructions(
@@ -332,9 +386,7 @@ def read_sass_counts(lib, probe) -> dict:
     leaf = _sass.count_instructions(max(leaf_loops, key=len))
     check(leaf.total <= 1.25 * merge.total,
           "the leaf loop holds one compress per trip")
-    counts = {"butterfly": _sass.butterfly_counts(
-                  _sass.find_function(fns, "colntt_kernel")),
-              "compress_merge": merge, "compress_leaf": leaf,
+    counts = {"compress_merge": merge, "compress_leaf": leaf,
               "compress_grind": grind, **field_sass_counts(fns),
               **field_op_counts(*probe)}
     for k, c in counts.items():
@@ -342,8 +394,9 @@ def read_sass_counts(lib, probe) -> dict:
             f" {c.uniform:g} uniform, {c.memory:g} memory, {c.control:g} "
             f"control instructions; at least {c.sm_clocks():.2f} SM clocks a"
             " thread")
-        # an add or subtract alone needs no multiply-add lane
-        check(c.alu > 0 and (c.fma > 0 or k.startswith(("op_add", "op_sub"))),
+        # an add, a subtract or a shift alone needs no multiply-add lane
+        check(c.alu > 0 and (c.fma > 0 or k.startswith(("op_add", "op_sub",
+                                                        "op_mul_pow2"))),
               f"SASS counts of {k} > 0")
     return counts
 
@@ -453,11 +506,22 @@ def phase_blake2s(dev, rng, kernels, sass, clock_hz) -> None:
         t = words_tensor(msgs.T, dev)
         k = bc.blake2s_words(t, nbytes)
         p = bc.blake2s_words_plain(t, nbytes)
-        check(torch.equal(k, p), f"blake2s_words {nbytes} B kernel == plain")
-        kh = k.cpu().numpy()
-        for i in range(0, 4096, 97):
-            ref = hashlib.blake2s(msgs[i].astype("<u4").tobytes()[:nbytes])
-            check(kh[:, i].astype("<u4").tobytes() == ref.digest(),
+        kh, ph = k.cpu().numpy(), p.cpu().numpy()
+        refs = {i: hashlib.blake2s(msgs[i].astype("<u4").tobytes()[:nbytes])
+                .digest() for i in range(0, 4096, 97)}
+        if not torch.equal(k, p):
+            # say which side is wrong, and where, before failing
+            apart = np.flatnonzero((kh != ph).any(axis=0))
+            wrong = {side: sum(h[:, i].astype("<u4").tobytes() != d
+                               for i, d in refs.items())
+                     for side, h in (("kernel", kh), ("plain", ph))}
+            check(False, f"blake2s_words {nbytes} B kernel == plain: "
+                  f"{apart.size} of 4096 messages differ (first "
+                  f"{apart[:8].tolist()}); against hashlib at {len(refs)} "
+                  f"messages, the kernel is wrong at {wrong['kernel']}, the "
+                  f"plain version at {wrong['plain']}")
+        for i, d in refs.items():
+            check(kh[:, i].astype("<u4").tobytes() == d,
                   f"blake2s_words {nbytes} B == hashlib")
         log(f"[phase 1] blake2s_words {nbytes:>4} B x 4096: kernel == plain"
             " == hashlib")
@@ -612,10 +676,42 @@ def phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz) -> None:
            sass["compress_merge"], clock_hz)
 
 
+def lde_entry(c, log_blowup: int, offset: int):
+    """(launch, plain) of the LDE entry alone, the first pass of `lde(c,
+    log_blowup, offset)` on a two-pass domain, with the arguments
+    `ntt_cuda.lde_cuda` gives it: `launch()` writes that pass's output
+    (B, m) and returns it; `plain(a, b)` is its plain rendering for rows
+    a..b, `colntt_plain` of the zero-padded, offset-scaled rows
+    (`coset_pad`)."""
+    from aero_tpu_torch.ntt import coset_pad
+    from aero_tpu_torch.ntt import ntt_cuda as nc
+    B, n = c.shape
+    m = n << log_blowup
+    check(nc._two_pass(m, nc.tables.MAX_L), "the LDE entry's domain is "
+          "two-pass")
+    n1, n2, tw2, _, ctw = nc._tables(m, False, c.device)
+    rowpow, colpow = nc._lde_tables(offset, n2, n1, c.device)
+    out = torch.empty((B, m), dtype=torch.int64, device=c.device)
+
+    def launch():
+        nc._pass_lde(c, out, tw2, ctw, rowpow, colpow, n2.bit_length() - 1,
+                     n1.bit_length() - 1, B, n, nc.zero_stages(n, n2, n1),
+                     (m, n1, 1), n1)
+        return out
+
+    def plain(a, b):
+        x = coset_pad(c[a:b], log_blowup, offset).reshape(b - a, n2, n1)
+        return nc.colntt_plain(x, tw2, ctw).reshape(b - a, m)
+
+    return launch, plain
+
+
 def phase_ntt(dev, rng, gen, kernels, sass, clock_hz) -> None:
     from aero_tpu_torch.field import P, from_u64
     from aero_tpu_torch.ntt import coset_pad, lde, ntt_plain
+    from aero_tpu_torch.ntt import ntt_cuda as nc
     from aero_tpu_torch.ntt.ntt_cuda import ntt_cuda, ntt_four_step_plain
+    from aero_tpu_torch.spec import field as F
 
     for logn in range(1, 17):
         x = from_u64(rng.integers(0, P, size=(8, 1 << logn),
@@ -647,10 +743,24 @@ def phase_ntt(dev, rng, gen, kernels, sass, clock_hz) -> None:
         f"{ms:.3f} ms, four-step plain {pms:.3f} ms, radix-2 plain "
         f"{r2ms:.3f} ms, max_abs_err {err}")
     record(kernels, None, "", err, ms, pms,
-           2 * x.numel() * 8 + ((1 << 23) + (1 << 12)) * 8,
-           x.numel() * 23 // 2, sass["butterfly"], clock_hz)
+           2 * x.numel() * 8 + ((1 << 23) + (1 << 12) + (1 << 11)) * 8,
+           ntt_terms(sass, 23, 8), None, clock_hz)
     del x, k, p
 
+    # the LDE route at small and middle sizes, every blowup the port uses
+    for logn, cols in ((10, 3), (14, 3), (20, 2)):
+        c = from_u64(rng.integers(0, P, size=(cols, 1 << logn),
+                                  dtype=np.uint64), dev)
+        for lb in (1, 2, 3, 4):
+            for off in (F.DOMAIN_OFFSET, 5):
+                got = lde(c, lb, off)
+                want = (ntt_plain(coset_pad(c, lb, off)) if logn < 20 else
+                        ntt_four_step_plain(coset_pad(c, lb, off), False))
+                check(torch.equal(got, want),
+                      f"lde 2^{logn} x {cols} blowup 2^{lb} offset {off}: "
+                      "kernel route == plain")
+    log("[phase 2] lde 2^10, 2^14, 2^20 at blowup 2..16, two offsets: "
+        "kernel route == ntt_plain(coset_pad(...))")
     c = from_u64(rng.integers(0, P, size=(8, 1 << 20), dtype=np.uint64), dev)
     k = lde(c, 3)
     p = ntt_plain(coset_pad(c, 3))
@@ -678,10 +788,93 @@ def phase_ntt(dev, rng, gen, kernels, sass, clock_hz) -> None:
     ms = cuda_ms(lambda: ntt_cuda(x))
     log(f"[phase 2] ntt 2^{LOG_LDE} x 72 (2 launches): kernel {ms:.3f} ms, "
         f"four-step plain {pms:.3f} ms (8-column chunks), max_abs_err {err}")
-    # bytes: the columns in and out, the cross table and the stage twiddles
+    # bytes: the columns in and out, the cross table and the pass tables
+    tables_b = (n + (1 << 12) + (1 << 11)) * 8
     record(kernels, "gl_colntt", f"NTT 2^{LOG_LDE} x 72 (2 launches)", err,
-           ms, pms, 2 * x.numel() * 8 + (n + (1 << 12)) * 8,
-           x.numel() * LOG_LDE // 2, sass["butterfly"], clock_hz)
+           ms, pms, 2 * x.numel() * 8 + tables_b,
+           ntt_terms(sass, LOG_LDE, 72), None, clock_hz)
+
+    # the main LDE of the 2^20-row proof: 72 x 2^20 coefficients, blowup 8
+    c = x[:, :1 << 20].contiguous()
+    del x
+    torch.cuda.empty_cache()
+    nc.reset_launches()
+    k = lde(c, 3)
+    torch.cuda.synchronize()
+    check(nc.LAUNCHES["gl_colntt_lde"] == 1 and nc.LAUNCHES["gl_colntt"] == 1,
+          "the LDE is two launches, the first the LDE entry")
+    err = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in range(0, 72, 8):
+        err = max(err, max_abs_err(k[a:a + 8], ntt_four_step_plain(
+            coset_pad(c[a:a + 8], 3), False)))
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    check(err == 0, "lde 72 x 2^20 x8: kernel route == four-step plain of "
+          "coset_pad")
+    del k
+    ms = cuda_ms(lambda: lde(c, 3))
+    log(f"[phase 2] lde 72 x 2^20 -> 2^{LOG_LDE} (gl_colntt_lde + "
+        f"gl_colntt): {ms:.3f} ms, plain {pms:.3f} ms (8-column chunks), "
+        f"max_abs_err {err}")
+    # bytes: the coefficients in, the evaluations out, the tables (the
+    # pass tables, the cross, the offset powers)
+    lde_b = (1 << 11) + (1 << 12)
+    record({}, None, "", err, ms, pms,
+           c.numel() * 8 + 72 * n * 8 + tables_b + lde_b * 8,
+           ntt_terms(sass, LOG_LDE, 72, log_blowup=3, lde=True), None,
+           clock_hz)
+    # its first pass alone: the LDE entry, one launch
+    entry, entry_plain = lde_entry(c, 3, F.DOMAIN_OFFSET)
+    nc.reset_launches()
+    k = entry()
+    torch.cuda.synchronize()
+    check(nc.LAUNCHES == {"gl_colntt": 0, "gl_colntt_lde": 1},
+          "the LDE entry alone is one launch")
+    err = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a in range(0, 72, 8):
+        err = max(err, max_abs_err(k[a:a + 8], entry_plain(a, a + 8)))
+    torch.cuda.synchronize()
+    pms = (time.perf_counter() - t0) * 1e3
+    check(err == 0, "the LDE entry 72 x 2^20 -> 2^23 == colntt_plain of "
+          "coset_pad")
+    del k
+    ms = cuda_ms(entry)
+    log(f"[phase 2] the LDE entry alone (gl_colntt_lde, the first pass of "
+        f"the main LDE): {ms:.3f} ms, plain {pms:.3f} ms (8-column chunks), "
+        f"max_abs_err {err}")
+    # bytes: the coefficients in, the pass output, its tables: the pass
+    # table (2^11), the cross (2^23), the offset powers (2^11 + 2^12)
+    record(kernels, "gl_colntt_lde", f"LDE entry 72 x 2^20 -> 2^{LOG_LDE}, "
+           "the first of the LDE's two launches", err, ms, pms,
+           c.numel() * 8 + 72 * n * 8 + (n + (1 << 11) + lde_b) * 8,
+           ntt_terms(sass, LOG_LDE, 72, log_blowup=3, lde=True, passes=1),
+           None, clock_hz)
+    del c, entry, entry_plain
+    nc.clear_table_cache()
+    torch.cuda.empty_cache()
+    # bench_lde_2e24's shape: 1 x 2^24 coefficients -> 2^27, three passes
+    c = device_felts((1, 1 << 24), gen, dev)
+    nc.reset_launches()
+    k = lde(c, 3)
+    torch.cuda.synchronize()
+    check(nc.LAUNCHES == {"gl_colntt": 2, "gl_colntt_lde": 1},
+          "lde 2^24 -> 2^27: the LDE entry, then two passes")
+    check(torch.equal(k, ntt_cuda(coset_pad(c, 3))),
+          "lde 2^24 -> 2^27 == the transform of the padded input")
+    del k
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: lde(c, 3), iters=3)
+    log(f"[phase 2] lde 1 x 2^24 -> 2^27 (three launches): {ms:.3f} ms")
+    record({}, None, "", 0, ms, float("nan"),
+           c.numel() * 8 + 8 * c.numel() * 8 * 2,
+           ntt_terms(sass, 27, 1, log_blowup=3, lde=True), None, clock_hz)
+    del c
+    nc.clear_table_cache()
+    torch.cuda.empty_cache()
 
 
 def queued_ms(dev):
@@ -1002,6 +1195,32 @@ def kernel_resources(lib, pattern: str, threads: int, what: str) -> tuple:
         f"loads of {res['instructions']}; room for {res['blocks_per_sm']} "
         f"blocks of {threads}, {res['warps_per_sm']} warps, an SM")
     return res, body
+
+
+NTT_THREADS = 256             # csrc/ntt.cu kThreads
+NTT_NOTE = ("radix-16 steps in registers over tiles of 2^13 elements (64 KB "
+            "of dynamic shared memory a block, XOR-swizzled), a step's "
+            "pre-twiddles from one table of w_L^e, no multiply by 1; bound "
+            "by the field ops the transform needs (_sass.ntt_field_ops), "
+            "each at the probe's count")
+NTT_LDE_NOTE = ("the coset LDE's first pass alone: reads the n coefficients, "
+                "scales them by offset^i as it loads them and skips the "
+                "stages that only copy; the LDE is this launch and one "
+                "gl_colntt pass (phase 2 logs the whole LDE's time and "
+                "bound); no zero-padded input exists")
+
+
+def ntt_resources(lib) -> dict:
+    """Kernel 1's two instances of library `lib` (`kernel_resources`), with
+    a cross table (the first pass of every transform): the transform's and
+    the LDE entry's, keyed by whether it is the LDE's."""
+    out = {}
+    for lde, pattern in ((False, "colntt_kernelILb0ELb1E"),
+                         (True, "colntt_kernelILb1ELb1E")):
+        out[lde], _ = kernel_resources(
+            lib, pattern, NTT_THREADS,
+            f"kernel 1 {'LDE entry' if lde else 'pass'}")
+    return out
 
 
 def k5_resources(lib, sass) -> dict:
@@ -1351,9 +1570,28 @@ def watch_copies(trace_shape, coeff_shape):
     """Count, while the block runs, the calls of torch.roll on a card tensor
     of `trace_shape` and of torch.cat into one of `coeff_shape`: the copies
     K6 (the trace rolled by a row) and K7 (the trace's, aux and composition
-    coefficient rows concatenated) do without."""
-    seen = {"roll": 0, "cat": 0}
-    roll, cat = torch.roll, torch.cat
+    coefficient rows concatenated) do without; and the zero-padded LDE
+    inputs that kernel 1's LDE entry does without: calls of `coset_pad`
+    and of torch.zeros for rows of the LDE domain, (rows, 2^23) on the
+    card."""
+    import importlib
+    ntt_mod = importlib.import_module("aero_tpu_torch.ntt.ntt")
+    seen = {"roll": 0, "cat": 0, "coset_pad": 0, "zeros_domain_rows": 0}
+    roll, cat, zeros, pad = torch.roll, torch.cat, torch.zeros, \
+        ntt_mod.coset_pad
+
+    def counted_zeros(*size, **kwargs):
+        shape = tuple(size[0]) if len(size) == 1 and isinstance(
+            size[0], (tuple, list, torch.Size)) else size
+        dev = kwargs.get("device")
+        if (len(shape) >= 2 and shape[-1] == 1 << LOG_LDE and dev is not None
+                and torch.device(dev).type == "cuda"):
+            seen["zeros_domain_rows"] += 1
+        return zeros(*size, **kwargs)
+
+    def counted_pad(*args, **kwargs):
+        seen["coset_pad"] += 1
+        return pad(*args, **kwargs)
 
     def counted_roll(x, *args, **kwargs):
         if x.is_cuda and tuple(x.shape) == tuple(trace_shape):
@@ -1366,11 +1604,14 @@ def watch_copies(trace_shape, coeff_shape):
             seen["cat"] += 1
         return out
 
-    torch.roll, torch.cat = counted_roll, counted_cat
+    torch.roll, torch.cat, torch.zeros = counted_roll, counted_cat, \
+        counted_zeros
+    ntt_mod.coset_pad = counted_pad
     try:
         yield seen
     finally:
-        torch.roll, torch.cat = roll, cat
+        torch.roll, torch.cat, torch.zeros = roll, cat, zeros
+        ntt_mod.coset_pad = pad
 
 
 def _prove(src: str, min_rows: int, dev):
@@ -1400,7 +1641,8 @@ FIELD_KERNELS = ("gl_elementwise", "gl_scan", "gl_batch_inv",
 # and the most K1 launches a 2^20-row proof may make (853 while the bus
 # factors and the OOD evaluation ran op by op)
 PROOF_K6, PROOF_K7, PROOF_K1_MAX = 1, 2, 250
-PATH_KERNELS = ("gl_colntt", "blake2s_hash_columns", "blake2s_merge_level",
+PATH_KERNELS = ("gl_colntt", "gl_colntt_lde", "blake2s_hash_columns",
+                "blake2s_merge_level",
                 "blake2s_grind_pow") + FIELD_KERNELS
 COUNTED_KERNELS = PATH_KERNELS + ("gl_constraint_merge",)
 
@@ -1471,16 +1713,17 @@ def phase_scale(dev, kernels, proof_out):
         f"times (at most {PROOF_K1_MAX}), K6 {counts['miden_aux_factors']} "
         f"(one call), K7 {counts['gl_eval_multi']} (one call of two "
         f"launches); calls on the card of torch.roll of the (72, 2^20) "
-        f"trace and of torch.cat into (89, 2^20) coefficient rows: "
-        f"{copies}")
+        f"trace, of torch.cat into (89, 2^20) coefficient rows, of "
+        f"coset_pad and of torch.zeros for (rows, 2^23): {copies}")
     check(counts["miden_aux_factors"] == PROOF_K6
           and counts["gl_eval_multi"] == PROOF_K7
           and counts["gl_elementwise"] <= PROOF_K1_MAX,
           f"the 2^20-row proof makes one K6 launch, one K7 call and at most "
           f"{PROOF_K1_MAX} K1 launches")
-    check(copies == {"roll": 0, "cat": 0},
-          "no roll of the trace and no concatenation of the coefficient "
-          "rows on the card path")
+    check(copies == {"roll": 0, "cat": 0, "coset_pad": 0,
+                     "zeros_domain_rows": 0},
+          "no roll of the trace, no concatenation of the coefficient rows "
+          "and no zero-padded LDE input on the card path")
     check(res.native_proof.to_bytes() == data
           and res.native_pub.to_bytes() == r.prep.pub.to_bytes(),
           "sdk.prove's proof and public inputs == the bench's")
@@ -2107,8 +2350,8 @@ def phase_bench(dev, rng, gen, sass, clock_hz, proof_bench, scale_bench):
             f"rendering {pms:.3f} ms, max_abs_err {err}; table cache "
             f"{nc.table_cache_bytes()} B of {nc.TABLE_CACHE_BYTES}")
         # bytes: the row in and out and the outer cross table, each once
-        record({}, None, "", err, ms, pms, 3 * n * 8, n * logn // 2,
-               sass["butterfly"], clock_hz)
+        record({}, None, "", err, ms, pms, 3 * n * 8,
+               ntt_terms(sass, logn, 1), None, clock_hz)
         del x, k
     nc.clear_table_cache()
     torch.cuda.empty_cache()
@@ -2165,9 +2408,10 @@ def phase_bench(dev, rng, gen, sass, clock_hz, proof_bench, scale_bench):
 def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
     """`--profile`: what a repeated 2^20-row proof costs and where.
     `repeats` proofs of one prepared trace in a row and one more after the
-    program was executed anew, each with its stage seconds, the seconds the
-    Python collector ran, its collections and the allocator's reserved
-    bytes; one more stage by stage, with its K1 launches by stage; then one
+    program was executed anew, each with its stage seconds, the seconds of
+    each stage's NTT table builds (the first proof's `trace_commit` split
+    into table building and the rest), the seconds the Python collector
+    ran, its collections and the allocator's reserved bytes; one more stage by stage, with its K1 launches by stage; then one
     more proof under `torch.profiler` (device kernel time, launches, idle
     share, the kernels that take most)."""
     from torch.profiler import ProfilerActivity, profile
@@ -2185,6 +2429,21 @@ def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
 
     last_s = 0.0
 
+    def table_seconds():
+        """Seconds of the last proof's NTT table builds ("ntt_tables"
+        spans) in each stage that built any."""
+        from aero_tpu_torch.prover import STAGES
+        from aero_tpu_torch.utils import get_tracer
+        recs = get_tracer().records
+        builds = [r for r in recs if r.name == "ntt_tables"]
+        out = {}
+        for st in (r for r in recs if r.name in STAGES):
+            t = sum(b.duration_s for b in builds
+                    if st.start <= b.start <= st.start + st.duration_s)
+            if t:
+                out[st.name] = t
+        return out
+
     def one(i, fresh):
         nonlocal last_s
         gc_s[0] = 0.0
@@ -2194,7 +2453,8 @@ def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
         last_s = run.seconds
         log("[profile] " + json.dumps({
             "proof": i, "fresh_setup": fresh, "seconds": run.seconds,
-            "spans": run.spans, "gc_seconds": gc_s[0],
+            "spans": run.spans, "ntt_table_seconds": table_seconds(),
+            "gc_seconds": gc_s[0],
             "gc_collections": [a - b for a, b in zip(after, before)],
             "peak_bytes": run.peak_bytes,
             "reserved_bytes": torch.cuda.memory_reserved(dev)}))
@@ -2275,6 +2535,7 @@ def main(argv=None) -> int:
     _build.load()
     log(f"[set-up] kernels built in {time.perf_counter() - t0:.3f} s: {lib}")
     sass = read_sass_counts(lib, probe)
+    ntt_res = ntt_resources(lib)
     k5_res = k5_resources(lib, sass)
     k6_res, k7_res = k6_k7_resources(lib, sass)
     # the C++ VM builds itself at its first run; keep that out of phase 3
@@ -2294,7 +2555,10 @@ def main(argv=None) -> int:
         **{name: dict(route="cuda", source=FIELD_SRC, replaces=where,
                       note=note)
            for name, (where, note) in FIELD_REPLACES.items()},
-        "gl_colntt": dict(route="cuda", source=NTT_SRC, replaces=NTT_TPU),
+        "gl_colntt": dict(route="cuda", source=NTT_SRC, replaces=NTT_TPU,
+                          note=NTT_NOTE, **ntt_res[False]),
+        "gl_colntt_lde": dict(route="cuda", source=NTT_SRC, replaces=NTT_TPU,
+                              note=NTT_LDE_NOTE, **ntt_res[True]),
         "blake2s_hash_columns": dict(route="cuda", source=B2S_SRC,
                                      replaces=B2S_TPU),
         "blake2s_merge_level": dict(route="cuda", source=B2S_SRC,

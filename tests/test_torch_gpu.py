@@ -38,18 +38,87 @@ def _words(arr, device):
                             .view(np.int64)).to(device)
 
 
-@pytest.mark.parametrize("logn", [1, 2, 5, 11, 12, 13, 16, 20, 24])
+@pytest.mark.parametrize("logn", range(1, 25))
 def test_ntt_kernel_matches_plain(cuda_device, logn):
+    """2^1..2^24 points in both directions, batches of 1, 8 and 72 rows
+    (72 up to 2^16 and at 2^20 and 2^23, the proof's main shapes; above,
+    as far as the plain versions' time goes): the kernel (two launches a
+    call) == the four-step plain rendering, 8 rows at a time, and up to
+    2^16 == the radix-2 plain transform."""
     rng = np.random.default_rng(logn)
-    cols = 1 if logn > 20 else 4
-    x = from_u64(rng.integers(0, P, size=(cols, 1 << logn), dtype=np.uint64),
+    batches = ((1, 8, 72) if logn <= 16 or logn in (20, 23) else
+               (1, 8) if logn <= 20 else (1,))
+    for cols in batches:
+        x = torch.cat([from_u64(rng.integers(
+            0, P, size=(min(8, cols - a), 1 << logn), dtype=np.uint64),
+            cuda_device) for a in range(0, cols, 8)])
+        for invert in (False, True):
+            ntt_cuda.reset_launches()
+            k = ntt_cuda.ntt_cuda(x, invert)
+            assert ntt_cuda.LAUNCHES == {"gl_colntt": 2, "gl_colntt_lde": 0}
+            for a in range(0, cols, 8):
+                assert torch.equal(k[a:a + 8], ntt_cuda.ntt_four_step_plain(
+                    x[a:a + 8], invert))
+            if logn <= 16:
+                assert torch.equal(k, ntt_plain(x, invert))
+            del k
+        assert torch.equal(ntt_cuda.ntt_cuda(ntt_cuda.ntt_cuda(x), True), x)
+        del x
+    ntt_cuda.clear_table_cache()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("n,world", [(1 << 10, 4), (1 << 18, 4),
+                                     (1 << 20, 2)])
+def test_ntt_kernel_on_the_local_shapes_of_dist_ntt(cuda_device, n, world):
+    """The local transforms of `parallel.dist_ntt` on a rank: a batch of
+    (rows, k1 / world, k2) and then of (rows, k2 / world, k1), as its
+    transposes hand them over, in both directions."""
+    from aero_tpu_torch.parallel.dist_ntt import split_sizes
+    k1, k2, l1, l2 = split_sizes(n, world)
+    rng = np.random.default_rng(n + world)
+    for shape in ((3, l1, k2), (3, l2, k1)):
+        x = from_u64(rng.integers(0, P, size=shape, dtype=np.uint64),
+                     cuda_device)
+        for invert in (False, True):
+            k = ntt_cuda.ntt_cuda(x, invert)
+            assert torch.equal(k, ntt_cuda.ntt_four_step_plain(x, invert))
+            assert torch.equal(k.cpu(), ntt_cuda.ntt_cuda(x.cpu(), invert))
+
+
+@pytest.mark.parametrize("logn", [10, 12, 14, 16, 18, 20])
+def test_lde_route_matches_plain(cuda_device, logn):
+    """The coset LDE route (the LDE entry, then one transform pass) at
+    2^10..2^20 coefficients and blowup 2..16 == ntt_plain(coset_pad(...)),
+    two launches a call."""
+    from aero_tpu_torch.spec import field as F
+    rng = np.random.default_rng(200 + logn)
+    c = from_u64(rng.integers(0, P, size=(2, 1 << logn), dtype=np.uint64),
                  cuda_device)
-    for invert in (False, True):
-        k = ntt_cuda.ntt_cuda(x, invert)
-        assert torch.equal(k, ntt_cuda.ntt_four_step_plain(x, invert))
-        if logn <= 16:
-            assert torch.equal(k, ntt_plain(x, invert))
-    assert torch.equal(ntt_cuda.ntt_cuda(ntt_cuda.ntt_cuda(x), True), x)
+    for log_blowup in (1, 2, 3, 4):
+        for offset in (F.DOMAIN_OFFSET, 5):
+            ntt_cuda.reset_launches()
+            got = lde(c, log_blowup, offset)
+            assert ntt_cuda.LAUNCHES == {"gl_colntt": 1, "gl_colntt_lde": 1}
+            assert torch.equal(got, ntt_plain(coset_pad(c, log_blowup,
+                                                        offset)))
+
+
+@pytest.mark.parametrize("max_l,logn,log_blowup", [(8, 4, 3), (8, 6, 3),
+                                                   (16, 8, 4)])
+def test_lde_route_in_three_passes_on_the_card(cuda_device, max_l, logn,
+                                               log_blowup):
+    """The pass limit lowered: the LDE entry is the outer pass, then two
+    inner launches and one a row."""
+    rng = np.random.default_rng(300 + logn)
+    c = from_u64(rng.integers(0, P, size=(3, 1 << logn), dtype=np.uint64),
+                 cuda_device)
+    ntt_cuda.reset_launches()
+    got = ntt_cuda.lde_cuda(c, log_blowup, max_l=max_l)
+    assert ntt_cuda.LAUNCHES == {"gl_colntt": 1 + 3, "gl_colntt_lde": 1}
+    assert torch.equal(got, ntt_plain(coset_pad(c, log_blowup)))
+    assert torch.equal(got.cpu(), ntt_cuda.lde_cuda(c.cpu(), log_blowup,
+                                                    max_l=max_l))
 
 
 @pytest.mark.parametrize("max_l,logn", [(4, 5), (4, 6), (8, 7), (8, 9),
@@ -95,7 +164,9 @@ def test_lde_past_the_two_pass_limit_on_the_card(cuda_device):
     n = 1 << 22
     c = from_u64(rng.integers(0, P, size=(1, n), dtype=np.uint64),
                  cuda_device)
+    ntt_cuda.reset_launches()
     got = lde(c, 3).reshape(n, 8)
+    assert ntt_cuda.LAUNCHES == {"gl_colntt": 2, "gl_colntt_lde": 1}
     w_m = F.get_root_of_unity(25)
     for t in range(8):
         sc = power_series(F.mul(F.DOMAIN_OFFSET, F.exp(w_m, t)), n,

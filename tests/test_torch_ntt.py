@@ -96,11 +96,12 @@ def test_tables_reach_two_passes_of_4096():
 
 
 def test_colntt_plain_is_one_pass_of_the_kernel():
-    """One pass equals a size-L NTT down each column, times the cross."""
+    """One pass equals a size-L NTT down each column, times the cross; the
+    pass table is w_L^e for e < L."""
     rng = np.random.default_rng(3)
     x = rng.integers(0, P, size=(2, 16, 4), dtype=np.uint64)
     cross = rng.integers(0, P, size=(16, 4), dtype=np.uint64)
-    tw = T.from_u64(tables.radix2_twiddles(16, False), "cpu")
+    tw = T.power_series(F.get_root_of_unity(4), 16)
     got = T.to_u64(ntt_cuda.colntt_plain(T.from_u64(x, "cpu"), tw,
                                          T.from_u64(cross, "cpu")))
     cols = np.ascontiguousarray(np.transpose(x, (0, 2, 1)))   # (B, C, L)

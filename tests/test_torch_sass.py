@@ -1,7 +1,8 @@
 """The SASS reader of the port (`aero_tpu_torch._sass`) on a listing in the
 format `cuobjdump -sass` prints: functions, instruction counts by pipe,
-loops from backward branches, and the butterfly loop of the NTT kernel.
-The real listing exists only where the kernels are built, on the card.
+loops from backward branches; and the field operations by which kernel 1,
+the NTT, is bound, counted from a shape. The real listing exists only
+where the kernels are built, on the card.
 """
 
 import pytest
@@ -86,13 +87,125 @@ def test_loops_come_from_backward_branches(functions):
     assert spans == [(0x10, 0x30), (0x60, 0xd0), (0x50, 0xf0)]
 
 
-def test_butterfly_loop_is_the_innermost_shared_memory_loop(functions):
-    c = _sass.butterfly_counts(_sass.find_function(functions,
-                                                   "colntt_kernel"))
-    assert (c.alu, c.fma, c.memory, c.control) == (2, 1, 4, 1)
-    assert c.shared_stores == 2
-    with pytest.raises(RuntimeError, match="butterfly"):
-        _sass.butterfly_counts(_sass.find_function(functions, "flat_kernel"))
+# --------------------------- kernel 1's bound: field ops from the shape
+
+# the multiplies by a twiddle +-2^e of a column of 2^23, stage by stage:
+# min(2^(s-1), 32) - 1 indices at stage s, each in 2^23 / 2^s butterflies
+POW2_2E23 = {2: 1 << 21, 3: 3 << 20, 4: 7 << 19, 5: 15 << 18, 6: 31 << 17,
+             **{s: 31 << (23 - s) for s in range(7, 13)}}
+
+
+def test_ntt_field_ops_of_the_72_x_2e23_transform():
+    """The main LDE's transform at full size, by hand: 2^22 * 23
+    butterflies a column; twiddle 1 in 4096 * 2047 (pass 1, 2048 rows) +
+    2048 * 4095 (pass 2, 4096 rows) of them; one cross multiply an
+    element; twiddles +-2^e at stages 2..11 of pass 1 and 2..12 of
+    pass 2."""
+    got = _sass.ntt_field_ops(23, 72)
+    bfly = 72 * 96_468_992
+    pow2 = sum(POW2_2E23[s] for s in range(2, 12)) + sum(POW2_2E23.values())
+    assert pow2 == 20_844_544 + 20_908_032
+    assert got == {"mul": bfly - 72 * 16_771_072 + 72 * 8_388_608,
+                   "mul_pow2": 72 * pow2, "add": bfly, "sub": bfly}
+    assert got["mul"] == 6_342_230_016            # 88 086 528 a column
+
+
+def test_ntt_field_ops_of_the_lde_2e20_to_2e23():
+    """The coset LDE of 2^20 coefficients at blowup 8, by hand: pass 1
+    (2048 rows) needs 8 of its 11 stages, 4096 * 1024 * 8 butterflies, 255
+    of each column's with twiddle 1; pass 2 all 12 stages; the cross and
+    one multiply a coefficient."""
+    got = _sass.ntt_field_ops(23, 72, log_blowup=3, lde=True)
+    bfly = 33_554_432 + 50_331_648
+    trivial = 4096 * 255 + 2048 * 4095
+    pow2 = sum(POW2_2E23[s] for s in range(4, 12)) + sum(POW2_2E23.values())
+    assert got == {"mul": 72 * (bfly - trivial + 8_388_608 + 1_048_576),
+                   "mul_pow2": 72 * pow2, "add": 72 * bfly,
+                   "sub": 72 * bfly}
+    assert got["mul"] // 72 == 83_892_224
+    # 20 of 23 stages: the LDE needs 20/23 of the transform's butterflies
+    assert got["add"] * 23 == _sass.ntt_field_ops(23, 72)["add"] * 20
+
+
+def test_ntt_field_ops_of_the_lde_entry_alone():
+    """The LDE's first pass (the LDE entry) at 2^20 -> 2^23, by hand:
+    stages 4..11 of 2048-point columns, 255 of each column's butterflies
+    with twiddle 1, the cross table it applies and the scaling; the two
+    passes together are the whole LDE."""
+    got = _sass.ntt_field_ops(23, 72, log_blowup=3, lde=True, passes=1)
+    bfly = 8 * (1 << 22)
+    assert got == {"mul": 72 * (bfly - 4096 * 255 + 8_388_608 + 1_048_576),
+                   "mul_pow2": 72 * sum(POW2_2E23[s] for s in range(4, 12)),
+                   "add": 72 * bfly, "sub": 72 * bfly}
+    whole = _sass.ntt_field_ops(23, 72, log_blowup=3, lde=True)
+    rest = _sass.ntt_field_ops(23, 72)
+    for op in got:
+        # the second pass is the transform's last: no cross, no scaling
+        last = rest[op] - _sass.ntt_field_ops(23, 72, passes=1)[op]
+        assert whole[op] == got[op] + last
+
+
+@pytest.mark.parametrize("log_n,max_l,lde", [
+    (8, 4096, False), (16, 4096, False), (20, 4096, False), (12, 16, False),
+    (9, 4096, True), (16, 4096, True)])
+def test_ntt_field_ops_pow2_twiddles_by_their_values(log_n, max_l, lde):
+    """The multiplies counted as by +-2^e, against the twiddles' values:
+    at every counted stage s of every pass, the indices j < 2^(s-1) whose
+    w_(2^s)^j is one of the 192 powers of 2 mod p."""
+    from aero_tpu_torch.ntt.tables import pass_lengths
+    from aero_tpu_torch.spec import field as F
+    powers = {pow(2, e, F.P) for e in range(192)}
+    b = 3 if lde else 0
+    n = 1 << log_n
+    want = 0
+    for k, L in enumerate(pass_lengths(n, max_l)):
+        for s in range((b if k == 0 else 0) + 1, L.bit_length()):
+            w = F.get_root_of_unity(s)
+            want += (n >> s) * sum(pow(w, j, F.P) in powers
+                                   for j in range(1, 1 << (s - 1)))
+    got = _sass.ntt_field_ops(log_n, 1, log_blowup=b, lde=lde, max_l=max_l)
+    assert got["mul_pow2"] == want
+    assert 0 < want < got["mul"]
+
+
+@pytest.mark.parametrize("log_n,max_l,logs", [
+    (1, 4096, [0, 1]), (23, 4096, [11, 12]), (24, 4096, [12, 12]),
+    (25, 4096, [8, 8, 9]), (27, 4096, [9, 9, 9]), (9, 8, [3, 3, 3])])
+def test_ntt_pass_lengths_follow_the_wrapper(log_n, max_l, logs):
+    """The passes the bound counts are the wrapper's: two where both fit
+    the pass limit, else the outer pass and the inner two."""
+    from aero_tpu_torch.ntt.tables import pass_lengths
+    assert [L.bit_length() - 1 for L in pass_lengths(1 << log_n, max_l)] \
+        == logs
+
+
+@pytest.mark.parametrize("log_n,lde", [(4, False), (10, False), (25, False),
+                                       (6, True), (27, True)])
+def test_ntt_field_ops_count_every_butterfly_once(log_n, lde):
+    """Against a stage-by-stage count of a radix-2 transform: every stage
+    of every column transform, butterflies with twiddle index 0 free."""
+    from aero_tpu_torch.ntt.tables import pass_lengths
+    b = 3 if lde else 0
+    want = {"mul": 0, "add": 0}
+    n = 1 << log_n
+    for k, L in enumerate(pass_lengths(n)):
+        lg = L.bit_length() - 1
+        for s in range(1, lg + 1):
+            if k == 0 and s <= b:
+                continue
+            want["add"] += n // 2
+            want["mul"] += n // 2 - (n >> s)     # one j = 0 a block of 2^s
+        if k:
+            want["mul"] += n
+    if lde:
+        want["mul"] += n >> b
+    got = _sass.ntt_field_ops(log_n, 1, log_blowup=b, lde=lde)
+    assert {k: got[k] for k in want} == want and got["sub"] == want["add"]
+
+
+def test_ntt_field_ops_refuse_copies_past_the_first_pass():
+    with pytest.raises(ValueError):
+        _sass.ntt_field_ops(4, log_blowup=3, lde=True)    # first pass 2^2
 
 
 def test_missing_cuobjdump_raises(monkeypatch, tmp_path):
@@ -100,3 +213,53 @@ def test_missing_cuobjdump_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="cuobjdump"):
         _sass.dump_sass(tmp_path / "lib.so")
+
+
+# ------------- the multiply by 2^e that prices kernel 1's +-2^e twiddles
+
+SHIM = r"""
+#define __device__
+#define __forceinline__ inline
+static inline unsigned long long __umul64hi(unsigned long long a,
+                                            unsigned long long b) {
+  return (unsigned long long)(((unsigned __int128)a * b) >> 64);
+}
+#include "goldilocks.cuh"
+extern "C" u64 host_mul(u64 a, u64 b) { return gl_mul(a, b); }
+extern "C" u64 host_mul_pow2(u64 a, int e) { return gl_mul_pow2(a, e); }
+"""
+
+
+def test_mul_pow2_is_the_multiply_by_2_to_the_e(tmp_path):
+    """`gl_mul_pow2` (csrc/goldilocks.cuh), which the field-op probe
+    prices, built for the host with g++: a * 2^e mod p for every e in
+    1..95 and edge values of a; and `gl_mul` over the same reduction."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    import numpy as np
+
+    from aero_tpu_torch import _build
+    from aero_tpu_torch.spec import field as F
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.fail("g++ is needed to build the host shim")
+    (tmp_path / "shim.cpp").write_text(SHIM)
+    subprocess.run([gxx, "-O1", "-std=c++17", "-fPIC", "-shared", "-I",
+                    str(_build.CSRC), str(tmp_path / "shim.cpp"),
+                    "-o", str(tmp_path / "shim.so")], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(tmp_path / "shim.so"))
+    u64 = ctypes.c_uint64
+    lib.host_mul.restype = lib.host_mul_pow2.restype = u64
+    lib.host_mul.argtypes = [u64, u64]
+    lib.host_mul_pow2.argtypes = [u64, ctypes.c_int]
+    rng = np.random.default_rng(11)
+    values = [0, 1, 2, F.P - 1, F.P - 2, 1 << 63, 1 << 32, (1 << 32) - 1,
+              *(int(v) for v in rng.integers(0, F.P, 24, dtype=np.uint64))]
+    for a in values:
+        for e in range(1, 96):
+            assert lib.host_mul_pow2(a, e) == a * pow(2, e, F.P) % F.P, (a, e)
+        for b in values:
+            assert lib.host_mul(a, b) == a * b % F.P
