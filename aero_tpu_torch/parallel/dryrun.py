@@ -26,6 +26,15 @@ It runs on the CUDA card unless `--cpu` is given and raises without one.
 With fewer cards than ranks, `--exchange host` puts every rank on card 0
 and stages the exchanges through pinned host memory; that is never chosen
 for the caller.
+
+Each process (a rank, or the caller for one device) runs the pipeline
+twice after its set-up and reports both passes' seconds per stage
+(`seconds`, then `seconds_warm`: the first pass carries the cost of first
+use, module loading and table builds); the second pass's roots must equal
+the first's. On a CUDA device it also reports the peak device memory of
+the set-up (`setup_peak_device_bytes`) and of the two passes
+(`peak_device_bytes`, the high-water mark reset after the set-up), each
+net of what the process held before the dry run began.
 """
 
 from __future__ import annotations
@@ -50,6 +59,7 @@ from ..prover.fri import fold_evals
 from ..prover.prover import (FRAG, _ceval_static, _deep_core,
                              stage_constraint_eval)
 from ..spec import field as F
+from .dist_ntt import lde_chunk_cols
 from .mesh import Mesh, run_ranks, shard_domain
 from .sharded import (fold_leaf_columns, stage_commit, stage_composition,
                       stage_deep, stage_fri_fold, stage_lde)
@@ -75,7 +85,8 @@ class DryrunOut(NamedTuple):
     constraint_root: tuple
     fold_root: tuple
     matches_single_device: bool
-    ranks: tuple = ()       # each rank's report (seconds, traffic, launches)
+    ranks: tuple = ()       # each rank's report (seconds, traffic, launches,
+                            # peaks)
 
 
 def _dryrun_air_and_traces(trace_steps: int = 64, device="cpu",
@@ -144,10 +155,12 @@ def _words(root) -> List[int]:
 
 def _pipeline_roots(air, trace: torch.Tensor, aux: torch.Tensor,
                     aux_rand_ints, log_blowup: int,
-                    mesh: Optional[Mesh] = None, clock=None):
+                    mesh: Optional[Mesh] = None, clock=None,
+                    cols_per_chunk: Optional[int] = None):
     """Run LDE -> commit -> composition -> commit -> DEEP -> FRI fold ->
     commit and return the four roots, each as eight u32 words. With a mesh,
-    `trace` and `aux` are this rank's blocks."""
+    `trace` and `aux` are this rank's blocks, and its LDEs take
+    `cols_per_chunk` columns at a time (None: `dist_ntt.lde_chunk_cols`)."""
     opts = air.options
     ff = opts.fri_folding_factor
     clock = clock or _StageClock(trace.device)
@@ -162,15 +175,15 @@ def _pipeline_roots(air, trace: torch.Tensor, aux: torch.Tensor,
     alpha = 31337
 
     if mesh is not None:
-        _, main_lde = stage_lde(mesh, trace, log_blowup)
-        _, aux_lde = stage_lde(mesh, aux, log_blowup)
+        _, main_lde = stage_lde(mesh, trace, log_blowup, cols_per_chunk)
+        _, aux_lde = stage_lde(mesh, aux, log_blowup, cols_per_chunk)
         clock.lap("lde")
         main_root = stage_commit(mesh, main_lde)
         aux_root = stage_commit(mesh, aux_lde)
         clock.lap("commit")
-        constraint_lde = stage_composition(mesh, air, main_lde, aux_lde,
-                                           aux_rand_ints, cc_t, cc_b,
-                                           log_blowup)
+        constraint_lde = stage_composition(
+            mesh, air, main_lde, aux_lde, aux_rand_ints, cc_t, cc_b,
+            log_blowup, cols_per_chunk=cols_per_chunk)
         clock.lap("composition")
         constraint_root = stage_commit(mesh, constraint_lde)
         clock.lap("commit")
@@ -233,21 +246,78 @@ def _reset_launches() -> None:
     gl_cuda.reset_launches()
 
 
+class _Peaks:
+    """Device memory high-water marks of a CUDA device, net of what was
+    allocated when this object was made; on the CPU every figure is
+    None."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.base = self._reset() if self.device.type == "cuda" else None
+
+    def _reset(self) -> int:
+        torch.cuda.synchronize(self.device)     # CUDA up: the reset needs it
+        torch.cuda.reset_peak_memory_stats(self.device)
+        return torch.cuda.memory_allocated(self.device)
+
+    def read_and_reset(self) -> Optional[int]:
+        """The peak since the last reset, net of the base; a new mark
+        starts."""
+        if self.base is None:
+            return None
+        peak = torch.cuda.max_memory_allocated(self.device) - self.base
+        self._reset()
+        return peak
+
+
+def _twice(mesh: Optional[Mesh], air, trace, aux, rands, peaks: _Peaks,
+           setup_s: float, cols_per_chunk: Optional[int] = None) -> dict:
+    """The pipeline twice after a set-up of `setup_s` seconds: the first
+    pass's roots, seconds, launches (and a mesh's traffic and the chunk
+    widths of its main, aux and composition LDEs), the second pass's
+    seconds, and the set-up's and the two passes' peak device memory. The
+    second pass must give the first's roots. A mesh's chunk width
+    (`cols_per_chunk` None: `dist_ntt.lde_chunk_cols` of the main LDE,
+    resolved once, before the first pass) holds for every LDE of both."""
+    setup_peak = peaks.read_and_reset()
+    device = trace.device
+    if mesh is not None and cols_per_chunk is None:
+        blk = trace.shape[-1]
+        cols_per_chunk = lde_chunk_cols(mesh, trace.shape[0], blk, blk << 3)
+    _reset_launches()
+    clock = _StageClock(device)
+    roots = _pipeline_roots(air, trace, aux, rands, 3, mesh, clock,
+                            cols_per_chunk)
+    out = dict(roots=roots, seconds=clock.seconds, launches=_launches(),
+               setup_seconds=setup_s, rows=air.trace_length)
+    if mesh is not None:
+        out.update(traffic={k: list(v) for k, v in mesh.traffic.items()},
+                   chunk_cols=[min(w, cols_per_chunk) for w in (
+                       trace.shape[0], aux.shape[0], air.ce_blowup)])
+    warm = _StageClock(device)
+    again = _pipeline_roots(air, trace, aux, rands, 3, mesh, warm,
+                            cols_per_chunk)
+    if again != roots:
+        raise RuntimeError(f"the second pass's roots {again} differ from "
+                           f"the first's {roots}")
+    out.update(seconds_warm=warm.seconds, setup_peak_device_bytes=setup_peak,
+               peak_device_bytes=peaks.read_and_reset())
+    return out
+
+
 def single_device_dryrun(trace_steps: int = 64, device=None,
                          source: str = DRYRUN_SRC,
                          inputs: Sequence[int] = (0, 0)) -> dict:
-    """The pipeline on one device (None: the CUDA card): its four roots,
-    the seconds per stage and the kernel launches."""
+    """The pipeline on one device (None: the CUDA card), twice: its four
+    roots, the seconds per stage of both passes, the kernel launches of
+    the first and the peak device memory (see the module's docstring)."""
     device = resolve_device(device)
+    peaks = _Peaks(device)
     t0 = time.perf_counter()
     air, trace, aux, rands = _dryrun_air_and_traces(trace_steps, device,
                                                     source, inputs)
-    clock = _StageClock(device)
-    setup = time.perf_counter() - t0
-    _reset_launches()
-    roots = _pipeline_roots(air, trace, aux, rands, 3, clock=clock)
-    return dict(roots=roots, seconds=clock.seconds, setup_seconds=setup,
-                launches=_launches(), rows=air.trace_length)
+    return _twice(None, air, trace, aux, rands, peaks,
+                  time.perf_counter() - t0)
 
 
 def single_device_dryrun_roots(trace_steps: int = 64, device=None
@@ -258,24 +328,19 @@ def single_device_dryrun_roots(trace_steps: int = 64, device=None
 
 
 def _rank_pipeline(mesh: Mesh, trace_steps: int, source: str,
-                   inputs: Sequence[int]) -> dict:
+                   inputs: Sequence[int],
+                   cols_per_chunk: Optional[int] = None) -> dict:
     """One rank of the sharded pipeline: build the workload (every rank
     runs the VM itself; the trace is then cut into blocks), run the
-    stages, report."""
+    stages twice, report."""
+    peaks = _Peaks(mesh.device)
     t0 = time.perf_counter()
     air, trace, aux, rands = _dryrun_air_and_traces(trace_steps, mesh.device,
                                                     source, inputs)
     trace, aux = shard_domain(mesh, trace), shard_domain(mesh, aux)
-    clock = _StageClock(mesh.device)
-    setup = time.perf_counter() - t0
-    _reset_launches()
-    roots = _pipeline_roots(air, trace, aux, rands, 3, mesh=mesh, clock=clock)
-    peak = (torch.cuda.max_memory_allocated(mesh.device)
-            if mesh.device.type == "cuda" else None)
-    return dict(rank=mesh.rank, roots=roots, seconds=clock.seconds,
-                setup_seconds=setup, traffic=mesh.traffic,
-                launches=_launches(), rows=air.trace_length,
-                peak_device_bytes=peak)
+    return dict(rank=mesh.rank, **_twice(mesh, air, trace, aux, rands, peaks,
+                                         time.perf_counter() - t0,
+                                         cols_per_chunk))
 
 
 def rank_devices(world: int, device, exchange: str) -> List[str]:
@@ -312,9 +377,11 @@ def dryrun_prove_core(world: int, trace_steps: int = 64, device=None,
                       exchange: str = "device", reference=None,
                       source: str = DRYRUN_SRC,
                       inputs: Sequence[int] = (0, 0),
-                      timeout_s: float = 600.0) -> DryrunOut:
+                      timeout_s: float = 600.0,
+                      cols_per_chunk: Optional[int] = None) -> DryrunOut:
     """Run the sharded pipeline on a mesh of `world` ranks (processes) and
-    compare every root with the single-device pipeline's.
+    compare every root with the single-device pipeline's. The ranks' LDEs
+    take `cols_per_chunk` columns at a time (None: `dist_ntt.lde_chunk_cols`).
 
     The reference roots are `reference` if given; at 64 rows of the
     default program the committed golden file; else a single-device run on
@@ -329,8 +396,8 @@ def dryrun_prove_core(world: int, trace_steps: int = 64, device=None,
                                              inputs)["roots"]
     _ready_builds(devices[0] != "cpu")
     ranks = run_ranks(_rank_pipeline, world, devices,
-                      (trace_steps, source, tuple(inputs)), exchange,
-                      timeout_s)
+                      (trace_steps, source, tuple(inputs), cols_per_chunk),
+                      exchange, timeout_s)
     roots = ranks[0]["roots"]
     for r in ranks[1:]:
         if r["roots"] != roots:
@@ -363,7 +430,11 @@ def main(argv=None) -> int:
         print(f"{name}_root {root_hex(root)}")
     for r in out.ranks:
         print(f"rank {r['rank']}: seconds " + json.dumps(r["seconds"])
-              + " traffic " + json.dumps(r["traffic"]))
+              + " seconds_warm " + json.dumps(r["seconds_warm"])
+              + " traffic " + json.dumps(r["traffic"])
+              + f" chunk_cols {r['chunk_cols']}"
+              + f" setup_peak_device_bytes {r['setup_peak_device_bytes']}"
+              + f" peak_device_bytes {r['peak_device_bytes']}")
     print("roots match the single-device pipeline: "
           f"{out.matches_single_device}")
     return 0 if out.matches_single_device else 1

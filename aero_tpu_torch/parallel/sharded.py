@@ -5,7 +5,8 @@ The counterpart of `aero_tpu/parallel/sharded.py`. Every stage takes a
 and returns local blocks again; what crosses the block boundary is
 written out as an exchange:
 
-- `stage_lde`          iNTT + coset LDE through the distributed NTT;
+- `stage_lde`          iNTT + coset LDE through the distributed NTT, in
+                       chunks of columns (`dist_ntt.lde_chunk_cols`);
 - `stage_commit`       leaf hashing and the lower Merkle levels are local
                        (the blake2s kernels on a CUDA device); the D block
                        digests are nodes of the global tree, so one
@@ -25,8 +26,9 @@ written out as an exchange:
                        leaf of a folded layer on one rank before its commit.
 
 The JAX module's fixed-shape Merkle scan over garbage lanes, its jit and
-SPMD caches, its uniform 12-column chunks and its eager-versus-jit split
-answer XLA's compile times and are not carried over. `gf_scalar` has no
+SPMD caches, the padding of its column chunks to a uniform width and its
+eager-versus-jit split answer XLA's compile times and are not carried
+over. `gf_scalar` has no
 counterpart: a scalar is a Python int here.
 
 Every value is an exact field element or digest word, so the results equal
@@ -46,25 +48,32 @@ from ..hash.blake2s_cuda import hash_columns, merge_level
 from ..ntt.tables import np_power_series
 from ..prover.prover import FRAG, ConstraintMerger, _deep_core, ceval_domain
 from ..spec import field as F
-from .dist_ntt import dist_lde_coeffs, dist_ntt
+from .dist_ntt import dist_lde, dist_lde_coeffs, dist_ntt
 from .mesh import Mesh, all_gather, all_to_all, send_to_rank
 
 
 # --------------------------------------------------------------- stage: LDE
 
 def dist_lde_cols(mesh: Mesh, trace: torch.Tensor, log_blowup: int,
-                  offset: int = F.DOMAIN_OFFSET
+                  offset: int = F.DOMAIN_OFFSET,
+                  cols_per_chunk: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(coefficients, coset LDE) of sharded evaluation columns (w, n / D),
-    all columns in one batch."""
-    polys = dist_ntt(mesh, trace, invert=True)
-    return polys, dist_lde_coeffs(mesh, polys, log_blowup, offset)
+    """(coefficients, coset LDE) of sharded evaluation columns (w, n / D):
+    the iNTT, the scaling, the padding and the forward transform run one
+    chunk of `cols_per_chunk` columns at a time (None: the width
+    `dist_ntt.lde_chunk_cols` gives; all columns on the CPU), each written into
+    the two outputs, (w, n / D) and (w, m / D), allocated once."""
+    polys = torch.empty_like(trace)
+    return polys, dist_lde(mesh, trace, log_blowup, offset,
+                           cols_per_chunk=cols_per_chunk, coeffs=polys)
 
 
-def stage_lde(mesh: Mesh, trace: torch.Tensor, log_blowup: int
+def stage_lde(mesh: Mesh, trace: torch.Tensor, log_blowup: int,
+              cols_per_chunk: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """iNTT + coset LDE, batched over columns, domain axis sharded."""
-    return dist_lde_cols(mesh, trace, log_blowup, F.DOMAIN_OFFSET)
+    """iNTT + coset LDE in chunks of columns, domain axis sharded."""
+    return dist_lde_cols(mesh, trace, log_blowup, F.DOMAIN_OFFSET,
+                         cols_per_chunk)
 
 
 # ------------------------------------------------------------ stage: commit
@@ -128,52 +137,75 @@ def deinterleave_columns(mesh: Mesh, coeffs: torch.Tensor, n: int, ce: int
     return got.reshape(u, ce).T.contiguous()
 
 
+def _merged_block(mesh: Mesh, air: Air, main_lde: torch.Tensor,
+                  aux_lde: Optional[torch.Tensor], aux_rand: Sequence[int],
+                  cc_t: Sequence, cc_b: Sequence) -> torch.Tensor:
+    """The merged constraint evaluations (m / D,) of this rank's block, in
+    fragments of FRAG points. A fragment's frames are slices of the LDE
+    blocks, read where they lie; where the frame at x * g runs past the
+    block's end (the last fragment), it is built from the block's tail and
+    the next block's first `blowup` points (`next_points`)."""
+    blowup = air.options.blowup_factor
+    m_blk = main_lde.shape[-1]
+    merger = ConstraintMerger(
+        air, aux_rand, cc_t, cc_b,
+        ceval_domain(air, main_lde.device, mesh.rank * m_blk, m_blk),
+        main_lde.device)
+    halo_main = next_points(mesh, main_lde, blowup)
+    halo_aux = None if aux_lde is None else next_points(mesh, aux_lde,
+                                                        blowup)
+    m_frag = min(m_blk, FRAG)
+
+    def frames(x, halo, a0):
+        """The cur and nxt frames of the fragment at a0: nxt is the window
+        [a0 + blowup, a0 + blowup + m_frag) of the block followed by the
+        halo."""
+        if x is None:
+            return None, None
+        lo, hi = a0 + blowup, a0 + blowup + m_frag
+        if hi <= m_blk:
+            nxt = x[:, lo:hi]
+        elif lo >= m_blk:                   # a fragment shorter than blowup
+            nxt = halo[:, lo - m_blk:hi - m_blk]
+        else:
+            nxt = torch.cat([x[:, lo:], halo[:, :hi - m_blk]], dim=-1)
+        return x[:, a0:a0 + m_frag], nxt
+
+    return torch.cat([
+        merger.fragment(*frames(main_lde, halo_main, a0),
+                        *frames(aux_lde, halo_aux, a0), a0)
+        for a0 in range(0, m_blk, m_frag)])
+
+
 def stage_composition(mesh: Mesh, air: Air, main_lde: torch.Tensor,
                       aux_lde: Optional[torch.Tensor],
                       aux_rand: Sequence[int], cc_t: Sequence, cc_b: Sequence,
-                      log_blowup: int) -> torch.Tensor:
-    """Constraint evaluation over this rank's block of the LDE domain and
-    the composition columns: returns the block (ce, m / D) of their LDE.
-    cc_t / cc_b: one (alpha, beta) pair of ints per constraint."""
+                      log_blowup: int,
+                      cols_per_chunk: Optional[int] = None) -> torch.Tensor:
+    """Constraint evaluation over this rank's block of the LDE domain, in
+    fragments of FRAG points (`_merged_block`), and the composition
+    columns: returns the block (ce, m / D) of their LDE, in chunks of
+    `cols_per_chunk` columns (None: `dist_ntt.lde_chunk_cols`). cc_t /
+    cc_b: one (alpha, beta) pair of ints per constraint."""
     n = air.trace_length
-    blowup = air.options.blowup_factor
     m_blk = main_lde.shape[-1]
-    m = m_blk * mesh.world
-    if m != n * blowup:
+    if m_blk * mesh.world != n * air.options.blowup_factor:
         raise ValueError("stage_composition: the blocks do not add up to the"
                          " LDE domain")
-    device = main_lde.device
     # rand-dependent assertions (MidenAir's ROM product) read the rands
     air._aux_rand = [int(x) % F.P for x in aux_rand] or None
-
-    first = mesh.rank * m_blk
-    merger = ConstraintMerger(air, aux_rand, cc_t, cc_b,
-                              ceval_domain(air, device, first, m_blk), device)
-    # the block followed by the next block's first points: cur and nxt
-    # frames are then plain slices
-    main_ext = torch.cat([main_lde, next_points(mesh, main_lde, blowup)],
-                         dim=-1)
-    aux_ext = None
-    if aux_lde is not None:
-        aux_ext = torch.cat([aux_lde, next_points(mesh, aux_lde, blowup)],
-                            dim=-1)
-    m_frag = min(m_blk, FRAG)
-    parts = []
-    for a0 in range(0, m_blk, m_frag):
-        cur = slice(a0, a0 + m_frag)
-        nxt = slice(a0 + blowup, a0 + blowup + m_frag)
-        parts.append(merger.fragment(
-            main_ext[:, cur], main_ext[:, nxt],
-            aux_ext[:, cur] if aux_ext is not None else None,
-            aux_ext[:, nxt] if aux_ext is not None else None, a0))
-    merged = torch.cat(parts)
+    merged = _merged_block(mesh, air, main_lde, aux_lde, aux_rand, cc_t,
+                           cc_b)
 
     # iNTT over the coset: divide out the offset powers
+    first = mesh.rank * m_blk
     inv_off = F.inv(F.DOMAIN_OFFSET)
-    unscale = power_series(inv_off, m_blk, F.exp(inv_off, first), device)
+    unscale = power_series(inv_off, m_blk, F.exp(inv_off, first),
+                           main_lde.device)
     c_coeffs = mul(dist_ntt(mesh, merged, invert=True), unscale)
     col_coeffs = deinterleave_columns(mesh, c_coeffs, n, air.ce_blowup)
-    return dist_lde_coeffs(mesh, col_coeffs, log_blowup, F.DOMAIN_OFFSET)
+    return dist_lde_coeffs(mesh, col_coeffs, log_blowup, F.DOMAIN_OFFSET,
+                           cols_per_chunk)
 
 
 # ---------------------------------------------------------------- stage: DEEP

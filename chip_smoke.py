@@ -52,18 +52,26 @@ each of which raises on a failed check (so the script exits non-zero):
      parser re-encodes it as Cairo memory and `cairo_sim` accepts it;
   7. the multi-device path: the dry-run pipeline of `parallel/` (`MidenAir`,
      72 + 9 columns, 112 constraints, blowup 8, folding 8) at 64 rows
-     against the committed golden roots and at 2^18 rows (a real trace, a
-     2^21-point domain) against the single-device pipeline run on the card
-     here. The machine has one card, so the mesh is driven two ways and the
-     lines say which: world 1 on `nccl` (every exchange a copy, every launch
-     and reshape real), and world 4 as four processes sharing the card with
-     the exchanges staged through pinned host memory and gloo, asked for by
-     name (`exchange="host"`). First each kernel is held against its plain
-     version at every shape the 2^18-row runs hand it (K5 on fragments of
-     2^20 and 2^19 points of a rank's block, K6 on the traces of the aux
-     builds in the runs' set-up). Prints the roots,
-     each rank's seconds per stage, the bytes each kind of exchange moved
-     and the launches per kernel; a mismatch or a dead rank raises.
+     against the committed golden roots, the single device at 2^18 rows
+     (phase 8 repeats it), and at the main path's 2^20 rows (a real trace,
+     a 2^23-point domain) against the single-device pipeline run on the
+     card here. With one card the mesh is driven two ways and the lines say
+     which: world 1 on `nccl` (every exchange a copy, every launch and
+     reshape real), and world 4 as four processes sharing the card with the
+     exchanges staged through pinned host memory and gloo, asked for by
+     name (`exchange="host"`); with four cards world 4 on `nccl` as well,
+     one card a rank, else a line says it did not run and how many cards
+     there are. First each kernel is held against its plain version at
+     every shape those runs hand it, the LDEs' column chunks at the widths
+     `dist_ntt.chunk_cols` gives (K5 on the last fragment of 2^21- and
+     2^23-point blocks, K6 on the traces of the aux builds in the runs'
+     set-up). Each process runs the pipeline twice; prints the roots, each
+     rank's seconds per stage of both passes, the bytes each kind of
+     exchange moved, the launches per kernel and the set-up and pipeline
+     peak device memory; a mismatch, a dead rank, a rank taking other
+     chunk widths than those checked, world 1's pipeline peak above 1.25
+     times the single device's or a host-shared world-4 rank's above 0.4
+     times world 1's raises.
   8. the int8 tensor-core 4-step NTT (`ntt/ntt_mxu.py`; `torch._int_mm`, no
      hand-written kernel, so it has no row in the `kernels` line): `ntt_mxu`
      and `intt_mxu` equal to the NTT kernel at 2^6 x 3, 2^8 x 2, 2^10 x 2 x 4,
@@ -1867,8 +1875,6 @@ def phase_parser(dev) -> None:
         f"in {time.perf_counter() - t0:.3f} s")
 
 
-# a rank's counted stages run no scan: the aux segment, whose bus is K2's
-# scans, is built in the set-up
 # the dry run builds its aux segment (K6, K2) in its set-up, before its
 # counts are reset, and evaluates no OOD point (K7)
 DRYRUN_KERNELS = ("gl_colntt", "blake2s_hash_columns",
@@ -1876,17 +1882,36 @@ DRYRUN_KERNELS = ("gl_colntt", "blake2s_hash_columns",
                       k for k in FIELD_KERNELS
                       if k not in ("gl_scan", "miden_aux_factors",
                                    "gl_eval_multi"))
-LOG_DRYRUN_ROWS = 18
-DRYRUN_WORLDS = (1, 4)
+LOG_MXU_DRYRUN_ROWS = 18   # the single-device run phase 8 repeats through
+                           # ntt_mxu
+LOG_MESH_ROWS = 20         # the mesh's depth: the main path's trace
+# the meshes phase 7 drives on one card at 2^LOG_MESH_ROWS rows, and the
+# one it drives where there are four cards
+MESHES = ((1, "device", "world 1, nccl"),
+          (4, "host", "world 4, four processes sharing the card, exchange "
+           "through pinned host memory and gloo"))
+NCCL_WORLD4 = (4, "device", "world 4, nccl, one card a rank")
+# a pipeline's peak device memory against the single device's at the
+# mesh's depth: world 1 at most 1.25 times it, a rank of the host-shared
+# world 4 at most 0.4 times world 1's
+PEAK_WORLD1_OVER_SINGLE = 1.25
+PEAK_WORLD4_OVER_WORLD1 = 0.4
 
 
-def dryrun_kernel_shapes(world):
-    """What one rank of a `world`-rank dry run at 2^LOG_DRYRUN_ROWS rows
-    hands the kernels: the local transforms (rows, size, inverse) of every
-    distributed NTT, and the (columns, leaves) of every leaf hashing.
-    `world` None is the single-device pipeline: whole transforms."""
-    from aero_tpu_torch.parallel.dist_ntt import split_sizes
-    rows, m = 1 << LOG_DRYRUN_ROWS, 8 << LOG_DRYRUN_ROWS
+def dryrun_kernel_shapes(world, log_rows: int, free_bytes: int):
+    """What one rank of a `world`-rank dry run at 2^log_rows rows hands
+    the kernels: the local transforms (rows, size, inverse) of every
+    distributed NTT, with the LDEs in the chunks `dist_ntt.chunk_cols`
+    gives for `free_bytes` of free device memory, the (columns, leaves) of
+    every leaf hashing, and the chunk widths of the main, aux and
+    composition LDEs (which the ranks must report). `world` None is the
+    single-device pipeline: whole transforms, no chunks."""
+    from aero_tpu_torch.parallel.dist_ntt import chunk_cols, split_sizes
+    rows, m = 1 << log_rows, 8 << log_rows
+    D = world or 1
+    chunks = {w: w if world is None
+              else chunk_cols(w, rows // D, m // D, free_bytes)
+              for w in (72, 9, 8)}
     transforms = []
     # main and aux LDE; the composition's iNTT and the LDE of its 8
     # columns; the fold's iNTT and the NTT of the folded layer
@@ -1897,24 +1922,34 @@ def dryrun_kernel_shapes(world):
             transforms.append((w, n, inv))
             continue
         k1, k2, l1, l2 = split_sizes(n, world)
-        for shape in ((w * l1, k2, inv), (w * l2, k1, inv)):
-            if shape not in transforms:
-                transforms.append(shape)
-    D = world or 1
+        c = chunks.get(w, w)
+        for b in sorted({c, w % c} - {0}):      # a chunk, the last one
+            for shape in ((b * l1, k2, inv), (b * l2, k1, inv)):
+                if shape not in transforms:
+                    transforms.append(shape)
     leaves = [(72, m // D), (9, m // D), (8, m // D),
               (8, m // 64 // D)]            # main, aux, constraint, fold
-    return transforms, leaves
+    return transforms, leaves, [chunks[72], chunks[9], chunks[8]]
 
 
-def phase_dryrun_shapes(dev, gen) -> None:
-    """Each kernel against its plain version at the shapes the 2^18-row dry
-    run launches, for world 1 and world 4, before the dry run is driven."""
+def phase_dryrun_shapes(dev, gen, free_bytes: int) -> dict:
+    """Each kernel against its plain version at the shapes the dry runs
+    launch: the single device at 2^LOG_MXU_DRYRUN_ROWS rows, and the single
+    device and every world at 2^LOG_MESH_ROWS rows, with the chunk widths
+    the ranks will choose; before the dry runs are driven. Returns those
+    widths a world."""
     from aero_tpu_torch.hash import blake2s_cuda as bc
     from aero_tpu_torch.ntt.ntt_cuda import ntt_cuda, ntt_four_step_plain
     seen = set()
-    for world in (None,) + DRYRUN_WORLDS:
-        transforms, leaves = dryrun_kernel_shapes(world)
-        who = f"world {world}" if world else "the single device"
+    chunks = {}
+    runs = [(None, LOG_MXU_DRYRUN_ROWS), (None, LOG_MESH_ROWS)] + [
+        (w, LOG_MESH_ROWS) for w in sorted({m[0] for m in MESHES}
+                                           | {NCCL_WORLD4[0]})]
+    for world, log_rows in runs:
+        transforms, leaves, chunks[world] = dryrun_kernel_shapes(
+            world, log_rows, free_bytes)
+        who = (f"world {world}" if world else "the single device") + (
+            f" at 2^{log_rows} rows")
         for shape in transforms:
             if shape in seen:
                 continue
@@ -1952,10 +1987,14 @@ def phase_dryrun_shapes(dev, gen) -> None:
             log(f"[phase 7] shapes of {who}: hash_columns {w} x {n}: "
                 f"kernel {ms:.3f} ms, plain {pms:.3f} ms, max_abs_err {err}")
             del cols, k
+        torch.cuda.empty_cache()
+    log(f"[phase 7] chunk widths (main, aux, composition LDE) each world "
+        f"will take with {free_bytes} B free: " + json.dumps(
+            {str(w): c for w, c in chunks.items() if w}))
     # every merge of every commit, whatever the world: a block's levels, the
     # fold's and the top of the tree over the gathered digests are all
     # (8, 2n) -> (8, n) with 2n a power of two up to the whole domain
-    d = torch.randint(0, 1 << 32, (8, 8 << LOG_DRYRUN_ROWS), generator=gen,
+    d = torch.randint(0, 1 << 32, (8, 8 << LOG_MESH_ROWS), generator=gen,
                       device=dev, dtype=torch.int64)
     worst, levels = 0, 0
     while d.shape[1] > 1:
@@ -1965,49 +2004,58 @@ def phase_dryrun_shapes(dev, gen) -> None:
               "plain")
         worst, levels, d = max(worst, err), levels + 1, k
     log(f"[phase 7] shapes of every world: merge_level at each of the "
-        f"{levels} levels from 2^{LOG_DRYRUN_ROWS + 3} digests down to the "
+        f"{levels} levels from 2^{LOG_MESH_ROWS + 3} digests down to the "
         f"root: kernel == plain, max_abs_err {worst}")
     del d, k
-    # the field kernels: the aux bus scans of 2^18 rows, the divisors of a
-    # world-1 block (2^21 points) and the fragments of a world-1 block
-    # (2^20 of 2^21) and of a world-4 block (2^19 of 2^19)
-    worst = field_k1(dev, gen, LOG_DRYRUN_ROWS, None, None, None)
-    for shape in ((4, 1 << LOG_DRYRUN_ROWS), (2, 8 << LOG_DRYRUN_ROWS),
-                  (3, 2 << LOG_DRYRUN_ROWS)):
+    # the field kernels: the aux bus scans (4, rows), the divisors of a
+    # block (2, m / D) and the DEEP divisors of a fragment (3, m_frag) of
+    # both depths; K3, K4 and K5 on the last fragment (2^20 points) of the
+    # whole 2^21-point domain at 2^18 rows, of a world-1 block (2^23) and
+    # of a world-4 block (2^21) at 2^20 rows
+    worst = 0
+    for log_n in (LOG_MXU_DRYRUN_ROWS, LOG_MESH_ROWS):
+        worst = max(worst, field_k1(dev, gen, log_n, None, None, None))
+    for shape in ((4, 1 << 18), (2, 1 << 21), (3, 1 << 19), (4, 1 << 20),
+                  (2, 1 << 23), (3, 1 << 20)):
         worst = max(worst, field_k2(dev, gen, shape, (1, 77), None, None,
                                     None))
-    for log_m, log_ld in ((20, 21), (19, 19)):
+    for log_rows, log_m, log_ld in ((LOG_MXU_DRYRUN_ROWS, 20, 21),
+                                    (LOG_MESH_ROWS, 20, 23),
+                                    (LOG_MESH_ROWS, 20, 21)):
         worst = max(worst, field_k3(synthetic_merge(dev, gen, 1 << log_m),
                                     None, None, None, what=f"2^{log_m}"))
         worst = max(worst, field_k4(dev, gen, (72, 9, 8), log_m, log_ld,
                                     None, None, None))
-        merger, frames, a0 = dryrun_merger(dev, gen, log_m, log_ld)
+        merger, frames, a0 = dryrun_merger(dev, gen, log_m, log_ld, log_rows)
         worst = max(worst, field_k5(merger, frames, a0, None, None, None,
                                     what=f"2^{log_m} of a block of "
-                                    f"2^{log_ld}"))
+                                    f"2^{log_ld} at 2^{log_rows} rows"))
         del merger, frames
         torch.cuda.empty_cache()
     # the aux build of each dry run (in its set-up): K6 over the trace
     from aero_tpu_torch.air.miden import MidenAir
-    rng = np.random.default_rng(SEED + LOG_DRYRUN_ROWS)
-    for rows in (64, 1 << LOG_DRYRUN_ROWS):
+    rng = np.random.default_rng(SEED + LOG_MESH_ROWS)
+    for rows in (64, 1 << LOG_MXU_DRYRUN_ROWS, 1 << LOG_MESH_ROWS):
         rands = [int(v) for v in rng.integers(0, 1 << 63, 16)]
         worst = max(worst, field_k6(object.__new__(MidenAir),
                                     device_felts((72, rows), gen, dev),
                                     rands, None, None, None,
                                     what=f"{rows} rows"))
-    log(f"[phase 7] shapes of every world: K1 at 2^{LOG_DRYRUN_ROWS}, K2 on "
-        f"the aux scans and divisors, K3, K4 and K5 on fragments of 2^20 "
-        f"and 2^19 points, K6 on traces of 64 and 2^{LOG_DRYRUN_ROWS} rows: "
-        f"kernel == plain, max_abs_err {worst}")
+    log(f"[phase 7] shapes of every world: K1 at 2^{LOG_MXU_DRYRUN_ROWS} and "
+        f"2^{LOG_MESH_ROWS}, K2 on the aux scans and divisors, K3, K4 and K5 "
+        f"on the last fragments of 2^21- and 2^23-point blocks, K6 on traces "
+        f"of 64, 2^{LOG_MXU_DRYRUN_ROWS} and 2^{LOG_MESH_ROWS} rows: kernel "
+        f"== plain, max_abs_err {worst}")
+    return chunks
 
 
-def dryrun_merger(dev, gen, log_m: int, log_ld: int):
+def dryrun_merger(dev, gen, log_m: int, log_ld: int, log_rows: int):
     """A MidenAir merger over one rank's block of 2^log_ld points of the
-    2^LOG_DRYRUN_ROWS-row dry run's domain (the last block), seeded
-    coefficients and rands, and the frames of the block's last fragment of
-    2^log_m points as `parallel.sharded.stage_composition` hands them:
-    views of the block extended by the next block's first points."""
+    2^log_rows-row dry run's domain (the last block), seeded coefficients
+    and rands, and the frames of the block's last fragment of 2^log_m
+    points as `parallel.sharded.stage_composition` hands them: cur a view
+    of the block, nxt the block's tail followed by the next block's first
+    points (the halo)."""
     from aero_tpu_torch.air.miden import MidenAir, make_public_inputs
     from aero_tpu_torch.prover import prover as PR
     from aero_tpu_torch.sdk import DEFAULT_OPTIONS
@@ -2015,7 +2063,7 @@ def dryrun_merger(dev, gen, log_m: int, log_ld: int):
     src = fibonacci_source(10)
     _, out, ovf = execute_full(src, [0, 1], min_rows=64)
     pub = make_public_inputs(program_hash(src), [0, 1], out, overflow=ovf)
-    air = MidenAir(1 << LOG_DRYRUN_ROWS, pub, DEFAULT_OPTIONS, program=src)
+    air = MidenAir(1 << log_rows, pub, DEFAULT_OPTIONS, program=src)
     rng = np.random.default_rng(SEED + log_m)
     air._aux_rand = [int(v) for v in rng.integers(0, 1 << 63, 16)]
     cc_t = [tuple(int(v) for v in rng.integers(0, 1 << 63, 2))
@@ -2023,28 +2071,37 @@ def dryrun_merger(dev, gen, log_m: int, log_ld: int):
     cc_b = [tuple(int(v) for v in rng.integers(0, 1 << 63, 2))
             for _ in range(air.num_assertions)]
     m_blk, m_frag, b = 1 << log_ld, 1 << log_m, DEFAULT_OPTIONS.blowup_factor
-    first = (8 << LOG_DRYRUN_ROWS) - m_blk
+    first = (8 << log_rows) - m_blk
     merger = PR.ConstraintMerger(air, air._aux_rand, cc_t, cc_b,
                                  PR.ceval_domain(air, dev, first, m_blk), dev)
-    main_ext = device_felts((72, m_blk + b), gen, dev)
-    aux_ext = device_felts((9, m_blk + b), gen, dev)
     a0 = m_blk - m_frag
-    cur, nxt = slice(a0, a0 + m_frag), slice(a0 + b, a0 + b + m_frag)
-    return merger, (main_ext[:, cur], main_ext[:, nxt], aux_ext[:, cur],
-                    aux_ext[:, nxt]), a0
+    frames = []
+    for w in (72, 9):
+        block = device_felts((w, m_blk), gen, dev)
+        halo = device_felts((w, b), gen, dev)
+        frames += [block[:, a0:],
+                   torch.cat([block[:, a0 + b:], halo], dim=-1)]
+    return merger, tuple(frames), a0
 
 
 def phase_dryrun(dev, gen, kernels):
-    """The sharded stages end to end, world 1 on nccl and world 4 sharing
-    the card, at 64 rows and at 2^18 rows; first the kernels against their
-    plain versions at the shapes of the 2^18-row runs. Returns the
-    single-device roots at 2^18 rows."""
+    """The sharded stages end to end: world 1 on nccl and world 4 sharing
+    the card at 64 rows against the golden roots, and at 2^LOG_MESH_ROWS
+    rows against the single-device pipeline (world 4 on nccl too where
+    there are four cards); first the kernels against their plain versions
+    at the shapes of those runs. Returns the single-device roots at
+    2^LOG_MXU_DRYRUN_ROWS rows, which phase 8 repeats."""
     from aero_tpu_torch.parallel import dryrun as dr
 
-    phase_dryrun_shapes(dev, gen)
+    torch.cuda.empty_cache()
+    chunks = phase_dryrun_shapes(dev, gen, torch.cuda.mem_get_info(dev)[0])
     torch.cuda.empty_cache()
 
-    def report(what, out, want, rows):
+    def peaks(r):
+        return (f"peak device memory: set-up {r['setup_peak_device_bytes']}"
+                f" B, pipeline {r['peak_device_bytes']} B")
+
+    def report(what, out, want, rows, world):
         check(out.matches_single_device
               and [list(r) for r in out[:4]] == want,
               f"{what}: roots equal the reference")
@@ -2056,65 +2113,99 @@ def phase_dryrun(dev, gen, kernels):
             for name in DRYRUN_KERNELS:
                 check(r["launches"][name] > 0,
                       f"{what}: rank {r['rank']} launched {name}")
+            if rows == 1 << LOG_MESH_ROWS:
+                check(r["chunk_cols"] == chunks[world],
+                      f"{what}: rank {r['rank']} took the LDE chunks "
+                      f"{chunks[world]} whose shapes were checked, not "
+                      f"{r['chunk_cols']}")
             for k, v in r["launches"].items():
                 total[k] = total.get(k, 0) + v
             log(f"[phase 7] {what} rank {r['rank']}: set-up "
                 f"{r['setup_seconds']:.3f} s; stage seconds "
-                + json.dumps(r["seconds"]) + "; exchanges [calls, bytes "
+                + json.dumps(r["seconds"]) + "; again (warm) "
+                + json.dumps(r["seconds_warm"]) + "; LDE chunks "
+                + json.dumps(r["chunk_cols"]) + "; exchanges [calls, bytes "
                 "sent] " + json.dumps(r["traffic"]) + "; launches "
-                + json.dumps(r["launches"]) + f"; peak device memory "
-                f"{r['peak_device_bytes']} B")
+                + json.dumps(r["launches"]) + "; " + peaks(r))
         return total
 
     with open(dr.GOLDEN_PATH) as f:
         golden = json.load(f)["roots"]
-    meshes = ((1, "device", "world 1, nccl"),
-              (4, "host", "world 4, four processes sharing the card, "
-               "exchange through pinned host memory and gloo"))
-    check(tuple(m[0] for m in meshes) == DRYRUN_WORLDS,
-          "the shapes were checked for the worlds that are driven")
-    for world, exchange, how in meshes:
+    for world, exchange, how in MESHES:
         t0 = time.perf_counter()
         out = dr.dryrun_prove_core(world, 64, device=dev, exchange=exchange,
                                    reference=golden, timeout_s=300)
-        report(f"64 rows, {how}", out, golden, 64)
+        report(f"64 rows, {how}", out, golden, 64, world)
         log(f"[phase 7] 64 rows, {how}: equal to the committed golden roots;"
             f" {time.perf_counter() - t0:.3f} s with the start of the ranks")
 
-    rows = 1 << LOG_DRYRUN_ROWS
+    def single_device(log_rows):
+        rows = 1 << log_rows
+        torch.cuda.empty_cache()
+        single = dr.single_device_dryrun(rows, dev,
+                                         long_fib_source((rows - 64) // 12),
+                                         [0, 1])
+        check(single["rows"] == rows, f"the dry-run trace has 2^{log_rows}"
+              " rows")
+        for name, root in zip(dr.ROOT_NAMES, single["roots"]):
+            log(f"[phase 7] 2^{log_rows} rows, single device: {name}_root "
+                f"{dr.root_hex(root)}")
+        log(f"[phase 7] 2^{log_rows} rows, single device: set-up "
+            f"{single['setup_seconds']:.3f} s; stage seconds "
+            + json.dumps(single["seconds"]) + "; again (warm) "
+            + json.dumps(single["seconds_warm"]) + "; launches "
+            + json.dumps(single["launches"]) + "; " + peaks(single))
+        return single
+
+    mxu_roots = single_device(LOG_MXU_DRYRUN_ROWS)["roots"]
+    single = single_device(LOG_MESH_ROWS)
+    rows = 1 << LOG_MESH_ROWS
     src = long_fib_source((rows - 64) // 12)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    single = dr.single_device_dryrun(rows, dev, src, [0, 1])
-    check(single["rows"] == rows, f"the dry-run trace has 2^{LOG_DRYRUN_ROWS}"
-          " rows")
-    for name, root in zip(dr.ROOT_NAMES, single["roots"]):
-        log(f"[phase 7] 2^{LOG_DRYRUN_ROWS} rows, single device: {name}_root "
-            f"{dr.root_hex(root)}")
-    log(f"[phase 7] 2^{LOG_DRYRUN_ROWS} rows, single device: set-up "
-        f"{single['setup_seconds']:.3f} s; stage seconds "
-        + json.dumps(single["seconds"]) + "; launches "
-        + json.dumps(single["launches"]) + "; peak device memory "
-        f"{torch.cuda.max_memory_allocated()} B")
-    torch.cuda.empty_cache()
-    for world, exchange, how in meshes:
+    runs = list(MESHES)
+    if torch.cuda.device_count() >= NCCL_WORLD4[0]:
+        runs.append(NCCL_WORLD4)
+    else:
+        log(f"[phase 7] {NCCL_WORLD4[2]}: not run, this machine has "
+            f"{torch.cuda.device_count()} CUDA card(s) "
+            f"(torch.cuda.device_count())")
+    for name in COUNTED_KERNELS:
+        kernels[name]["launches_dryrun_world4_nccl"] = None
+    rank_peaks = {}
+    for world, exchange, how in runs:
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         out = dr.dryrun_prove_core(world, rows, device=dev,
                                    exchange=exchange,
                                    reference=single["roots"], source=src,
                                    inputs=[0, 1], timeout_s=600)
-        total = report(f"2^{LOG_DRYRUN_ROWS} rows, {how}", out,
-                       single["roots"], rows)
-        log(f"[phase 7] 2^{LOG_DRYRUN_ROWS} rows, {how}: equal to the "
-            f"single-device roots; {time.perf_counter() - t0:.3f} s with the "
-            "start of the ranks")
+        what = f"2^{LOG_MESH_ROWS} rows, {how}"
+        total = report(what, out, single["roots"], rows, world)
+        log(f"[phase 7] {what}: equal to the single-device roots; "
+            f"{time.perf_counter() - t0:.3f} s with the start of the ranks")
         check(total["blake2s_grind_pow"] == 0,
               "the dry run has no proof of work and launches no grind")
         check(total["gl_constraint_merge"] == 0,
               "the dry run merges through K5, not K3")
+        key = (f"launches_dryrun_world{world}"
+               + ("_nccl" if (world, exchange) == NCCL_WORLD4[:2] else ""))
         for name in COUNTED_KERNELS:
-            kernels[name][f"launches_dryrun_world{world}"] = total[name]
-    return single["roots"]
+            kernels[name][key] = total[name]
+        rank_peaks[exchange, world] = max(r["peak_device_bytes"]
+                                          for r in out.ranks)
+    w1 = rank_peaks["device", 1]
+    w4 = rank_peaks["host", 4]
+    log(f"[phase 7] 2^{LOG_MESH_ROWS} rows, pipeline peak device memory: "
+        f"single device {single['peak_device_bytes']} B, world 1 {w1} B "
+        f"({w1 / single['peak_device_bytes']:.4f} of the single device's), "
+        f"the largest rank of world 4 sharing the card {w4} B "
+        f"({w4 / w1:.4f} of world 1's)")
+    check(w1 <= PEAK_WORLD1_OVER_SINGLE * single["peak_device_bytes"],
+          f"world 1's pipeline peak is at most {PEAK_WORLD1_OVER_SINGLE} "
+          "times the single device's")
+    check(w4 <= PEAK_WORLD4_OVER_WORLD1 * w1,
+          f"a rank of world 4 peaks at most {PEAK_WORLD4_OVER_WORLD1} times "
+          "world 1's")
+    return mxu_roots
 
 
 def mxu_products_ms(k: int, m: int, dev) -> tuple:
@@ -2255,22 +2346,22 @@ def phase_mxu(dev, rng, gen, golden_digest, dryrun_roots) -> None:
     check(len(routed) > 0 and digest == golden_digest,
           "golden proof through ntt_mxu == phase 3's sha256")
 
-    rows = 1 << LOG_DRYRUN_ROWS
+    rows = 1 << LOG_MXU_DRYRUN_ROWS
     routed = []
     with transforms_through_mxu(routed):
         mx.reset_products()
         single = dr.single_device_dryrun(rows, dev,
                                          long_fib_source((rows - 64) // 12),
                                          [0, 1])
-    log(f"[phase 8] 2^{LOG_DRYRUN_ROWS}-row single-device dry run with "
+    log(f"[phase 8] 2^{LOG_MXU_DRYRUN_ROWS}-row single-device dry run with "
         f"{len(routed)} transforms through ntt_mxu {sorted(set(routed))}, "
         f"{mx.PRODUCTS['int8_matmul']} int8 products: stage seconds "
         + json.dumps(single["seconds"]) + "; launches "
         + json.dumps(single["launches"]))
     for name, root in zip(dr.ROOT_NAMES, single["roots"]):
-        log(f"[phase 8] 2^{LOG_DRYRUN_ROWS} rows through ntt_mxu: "
+        log(f"[phase 8] 2^{LOG_MXU_DRYRUN_ROWS} rows through ntt_mxu: "
             f"{name}_root {dr.root_hex(root)}")
-    check((72, LOG_DRYRUN_ROWS, True) in routed
+    check((72, LOG_MXU_DRYRUN_ROWS, True) in routed
           and single["roots"] == dryrun_roots,
           "dry-run roots through ntt_mxu == phase 7's single-device roots")
     torch.cuda.empty_cache()
@@ -2596,7 +2687,8 @@ def main(argv=None) -> int:
 
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launches_dryrun_world1", "launches_dryrun_world4")
+            "launches_dryrun_world1", "launches_dryrun_world4",
+            "launches_dryrun_world4_nccl")
     print(json.dumps({"kernels": [
         {"name": name, **{key: k[key] for key in keys},
          **{key: k[key] for key in ("host_ms", "symbolic_branch_ns", "note",

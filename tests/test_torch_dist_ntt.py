@@ -1,7 +1,8 @@
 """aero_tpu_torch.parallel.dist_ntt on a gloo group of CPU processes vs the
 single-device transforms of both packages: the cases of
 tests/test_dist_ntt.py that are not `slow`, at 2^9-2^12, for 2, 4 and 8
-ranks. Exact equality throughout.
+ranks, and the LDE in chunks of columns at forced widths (on the CPU a
+chunk takes all the columns unless asked). Exact equality throughout.
 
 Each world size starts its ranks once (`run_ranks`, which kills them after
 its time limit): every rank runs all the cases on its local blocks of the
@@ -25,6 +26,7 @@ from test_torch_worker import port_module  # noqa: F401  one torch thread; relea
 
 P = T.P
 WORLDS = (2, 4, 8)
+CHUNKS = (1, 5, 12)         # columns an LDE chunk takes in the chunked cases
 LIMIT_S = 240              # per world: a stuck rank fails one fixture
 
 
@@ -62,11 +64,26 @@ def _rank_cases(mesh, inputs):
                                            mesh.world, "cpu")
     out["mid_twiddles_inv"] = DN._mid_twiddles(k1, k2, True, mesh.rank,
                                                mesh.world, "cpu")
-    out["traffic"] = dict(mesh.traffic)
+    out["traffic"] = {k: list(v) for k, v in mesh.traffic.items()}
+    # the LDE of the 13 columns in chunks: 12 is aero_tpu's width, 5 and
+    # 12 leave a narrower last chunk; each chunk's exchanges counted apart
+    for cw in CHUNKS:
+        before = {k: list(v) for k, v in mesh.traffic.items()}
+        out[f"lde_cols_polys_c{cw}"], out[f"lde_cols_c{cw}"] = dist_lde_cols(
+            mesh, local("lde_cols"), 3, cols_per_chunk=cw)
+        out[f"traffic_c{cw}"] = {
+            k: [now - was for now, was in zip(v, before.get(k, [0, 0]))]
+            for k, v in mesh.traffic.items()}
+    out["coeffs_lde_c2"] = DN.dist_lde_coeffs(mesh, local("batched"), 3,
+                                              cols_per_chunk=2)
     whole = T.from_u64(inputs["batched"], "cpu")
     mine = shard_domain(mesh, whole)
     out["shard_is_my_block"] = torch.equal(mine, local("batched"))
     out["gathered"] = gather_domain(mesh, mine)
+    # the chunk width every rank agrees on: the least free memory, and on
+    # the CPU all the rows
+    out["least_free"] = DN.least_free_bytes(mesh, 1000 + 7 * mesh.rank)
+    out["lde_chunk_cols"] = DN.lde_chunk_cols(mesh, 13, 1 << 6, 1 << 9)
     return {k: T.to_u64(v) if torch.is_tensor(v) else v
             for k, v in out.items()}
 
@@ -105,6 +122,7 @@ def jax_ref():
            "lde": run(JN.lde_from_evals, x["lde"], 3),
            "lde_cols_polys": run(JN.intt, x["lde_cols"]),
            "lde_cols": run(JN.lde_from_evals, x["lde_cols"], 3),
+           "coeffs_lde": run(JN.lde, x["batched"], 3),
            "lde_blowup2": run(JN.lde_from_evals, x["lde_blowup2"], 1)}
     for inv in (False, True):
         lo, hi = jax_mid(32, 32, inv)
@@ -130,6 +148,72 @@ def test_dist_transform_matches_aero_tpu(ranks, jax_ref, case):
 def test_dist_transform_matches_the_port_single_device(ranks, case, fn):
     want = T.to_u64(fn(T.from_u64(_inputs()[case], "cpu")))
     assert np.array_equal(_joined(ranks, case), want)
+
+
+@pytest.mark.parametrize("part", ["lde_cols_polys", "lde_cols"])
+@pytest.mark.parametrize("cw", CHUNKS)
+def test_lde_cols_in_chunks_equals_aero_tpu_and_the_unchunked(ranks, jax_ref,
+                                                              cw, part):
+    """13 columns `cw` at a time: the coefficients and the LDE equal
+    `aero_tpu`'s intt / lde_from_evals and the all-columns result."""
+    got = _joined(ranks, f"{part}_c{cw}")
+    assert np.array_equal(got, jax_ref[part])
+    assert np.array_equal(got, _joined(ranks, part))
+
+
+def test_coefficient_lde_in_chunks_equals_both_packages(ranks, jax_ref):
+    """`dist_lde_coeffs` of 3 rows, 2 at a time (the last chunk one)."""
+    got = _joined(ranks, "coeffs_lde_c2")
+    assert np.array_equal(got, jax_ref["coeffs_lde"])
+    want = T.to_u64(TN.lde(T.from_u64(_inputs()["batched"], "cpu"), 3))
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("cw", CHUNKS)
+def test_chunks_keep_the_bytes_and_exchange_three_times_a_transform(ranks,
+                                                                    cw):
+    """Chunking moves the same bytes as one batch of 13 columns; each
+    chunk's iNTT and forward transform are three exchanges each, and its
+    padding one."""
+    world, got = ranks
+    chunks = -(-13 // cw)
+    pts = 13 * ((1 << 6) + (1 << 9))
+    for g in got:
+        t = g[f"traffic_c{cw}"]
+        assert t["ntt"] == [3 * 2 * chunks, 3 * 8 * pts // world]
+        assert t["lde_pad"][0] == chunks
+
+
+def test_chunk_width_rule():
+    """`chunk_cols`: 12 columns (aero_tpu's width), fewer where a quarter
+    of the free memory cannot hold a chunk's `chunk_bytes`, at least 1, at
+    most the width; all columns where no free memory is given (the CPU)."""
+    n, m = 1 << 20, 1 << 23
+    one = DN.chunk_bytes(1, n, m)
+    assert one == 8 * (3 * m + 2 * n)
+    assert DN.chunk_bytes(12, n, m) == 12 * one
+    assert DN.chunk_cols(72, n, m, None) == 72
+    assert DN.chunk_cols(72, n, m, 80 << 30) == 12
+    assert DN.chunk_cols(9, n, m, 80 << 30) == 9
+    assert DN.chunk_cols(8, n >> 2, m >> 2, 80 << 30) == 8
+    assert DN.chunk_cols(72, n, m, 4 * 5 * one) == 5
+    assert DN.chunk_cols(72, n, m, 4 * 5 * one - 1) == 4
+    assert DN.chunk_cols(72, n, m, 0) == 1
+    # a world-4 block: exactly 12 columns' transients in a quarter
+    assert DN.chunk_cols(72, n >> 2, m >> 2, 4 * 12 * (one >> 2)) == 12
+    with pytest.raises(ValueError, match="positive"):
+        DN.dist_lde_coeffs(None, torch.zeros(13, 64, dtype=torch.int64), 3,
+                           cols_per_chunk=0)
+
+
+def test_every_rank_takes_the_least_free_memory_and_the_cpu_all_rows(
+        ranks):
+    """`least_free_bytes` gives each rank the least of every rank's figure
+    (so ranks sharing a card make the same chunks and the same exchanges);
+    `lde_chunk_cols` on a CPU mesh takes all the rows."""
+    for g in ranks[1]:
+        assert g["least_free"] == 1000
+        assert g["lde_chunk_cols"] == 13
 
 
 def test_roundtrip_is_the_identity(ranks):

@@ -351,6 +351,32 @@ def test_dryrun_on_the_card_equals_the_golden_roots(cuda_device, world,
         assert r["launches"]["blake2s_merge_level"] > 0
 
 
+def test_dryrun_in_narrow_chunks_equals_one_chunk_and_bounds_its_peak(
+        cuda_device):
+    """World 1 on nccl at 2^20 rows: the LDEs 5 columns a chunk (the last
+    of the 72 two, of the 9 four) give the roots of all columns at once
+    and of the single device. Each run's pipeline peak stays below its
+    set-up peak plus what its LDEs hold: the coefficients and evaluations
+    of the main, aux and composition columns and one chunk's transients
+    (`dist_ntt.chunk_bytes`)."""
+    from aero_tpu_torch.parallel import dryrun as DR
+    from aero_tpu_torch.parallel.dist_ntt import chunk_bytes
+    n = 1 << 20
+    m = 8 * n
+    narrow = DR.dryrun_prove_core(1, n, cols_per_chunk=5, timeout_s=600)
+    assert narrow.matches_single_device
+    whole = DR.dryrun_prove_core(1, n, cols_per_chunk=72,
+                                 reference=[list(r) for r in narrow[:4]],
+                                 timeout_s=600)
+    assert whole.matches_single_device
+    for out, c in ((narrow, 5), (whole, 72)):
+        (r,) = out.ranks
+        assert r["chunk_cols"] == [c, min(c, 9), min(c, 8)]
+        lde_bytes = 8 * (72 + 9 + 8) * (n + m) + chunk_bytes(c, n, m)
+        assert 0 < r["peak_device_bytes"] < (r["setup_peak_device_bytes"]
+                                             + lde_bytes)
+
+
 def test_dryrun_never_shares_a_card_unasked(cuda_device):
     from aero_tpu_torch.parallel import dryrun as DR
     more = torch.cuda.device_count() + 1

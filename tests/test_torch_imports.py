@@ -1,9 +1,8 @@
 """aero_tpu_torch stands alone, and chip_smoke.py does not run on the CPU.
 
-- Importing every module of the package (and chip_smoke.py, bench_gpu.py)
-  leaves `jax`,
-  `aero_tpu` and every `aero_tpu.*` out of sys.modules; no source of the
-  port imports either.
+- Importing every module of the package (and chip_smoke.py, bench_gpu.py,
+  dryrun_passes.py) leaves `jax`, `aero_tpu` and every `aero_tpu.*` out of
+  sys.modules; no source of the port imports either.
 - With only `aero_tpu_torch/` on the path (no `aero_tpu/` beside it) the
   entry points import, prove on the CPU and parse the proof, and
   `bench_gpu.main` runs its plan at a small size.
@@ -51,8 +50,9 @@ def test_package_has_the_slice_modules():
 
 
 def test_importing_every_module_leaves_jax_out():
+    scripts = ["chip_smoke", "bench_gpu", "dryrun_passes"]
     code = ("import sys, importlib\n"
-            f"for m in {_modules()!r} + ['chip_smoke', 'bench_gpu']:\n"
+            f"for m in {_modules()!r} + {scripts!r}:\n"
             "    importlib.import_module(m)\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jaxlib', 'aero_tpu')))\n")
@@ -64,8 +64,8 @@ def test_importing_every_module_leaves_jax_out():
 
 def test_no_source_imports_jax():
     pat = re.compile(r"^\s*(import|from)\s+(jax|aero_tpu)(\.|\s)", re.M)
-    paths = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "bench_gpu.py")]
+    paths = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "bench_gpu.py",
+                                             "dryrun_passes.py")]
     for d, _, files in os.walk(PKG):
         paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
     for p in paths:

@@ -23,6 +23,7 @@ from aero_tpu_torch import field as T
 from aero_tpu_torch import ntt as TN
 from aero_tpu_torch.air import fib as TF
 from aero_tpu_torch.merkle import commit_columns
+from aero_tpu_torch.parallel import dist_ntt as DN
 from aero_tpu_torch.parallel import dryrun as DR
 from aero_tpu_torch.parallel import sharded as SH
 from aero_tpu_torch.parallel.mesh import run_ranks, split_blocks
@@ -96,7 +97,26 @@ def _rank_cases(mesh, inp):
         out[f"deinterleave{ce}"] = SH.deinterleave_columns(
             mesh, local("coeffs"), N, ce)
     out["layer_cols"] = SH.fold_leaf_columns(mesh, local("layer"), 8)
-    out["traffic"] = dict(mesh.traffic)
+    out["traffic"] = {k: list(v) for k, v in mesh.traffic.items()}
+    # the block in fragments of 16 points, then of 4 (shorter than the
+    # blowup, 8): the frames at x * g of the last fragments read the next
+    # block's first points; the LDEs a column a chunk
+    frag = SH.FRAG
+    try:
+        for f in (16, 4):
+            SH.FRAG = f
+            out[f"composition_frag{f}"] = SH.stage_composition(
+                mesh, air, main_lde, aux_lde, AUX_RAND, CC_T, CC_B, 3)
+    finally:
+        SH.FRAG = frag
+    out["polys_c1"], out["main_lde_c1"] = SH.stage_lde(
+        mesh, local("trace"), 3, cols_per_chunk=1)
+    out["composition_c1"] = SH.stage_composition(
+        mesh, air, main_lde, aux_lde, AUX_RAND, CC_T, CC_B, 3,
+        cols_per_chunk=1)
+    out["chunk_cols"] = [DN.lde_chunk_cols(mesh, w, N // mesh.world,
+                                           M // mesh.world)
+                         for w in (2, 1, air.ce_blowup)]
     return {k: T.to_u64(v) if torch.is_tensor(v) else v
             for k, v in out.items()}
 
@@ -220,6 +240,28 @@ def test_commit_root_matches_both_and_every_rank_agrees(ranks, jax_ref,
         assert _root(g[name]) == jax_ref[name] == port_ref[name]
 
 
+@pytest.mark.parametrize("name,ref", [
+    ("composition_frag16", "composition"),
+    ("composition_frag4", "composition"), ("polys_c1", "polys"),
+    ("main_lde_c1", "main_lde"), ("composition_c1", "composition")])
+def test_fragments_and_chunks_leave_the_stages_equal_to_both(
+        ranks, jax_ref, port_ref, name, ref):
+    """Fragments of 16 and of 4 points, smaller than the block and than
+    the blowup (the last ones read the halo), and LDEs a column at a time
+    give what the JAX stages and the single-device prover give."""
+    got = _joined(ranks, name)
+    assert np.array_equal(got, jax_ref[ref])
+    assert np.array_equal(got, port_ref[ref])
+
+
+def test_each_lde_reports_its_chunk_width(ranks):
+    """On the CPU an LDE takes all its columns unless asked: main 2, aux
+    1, composition columns ce."""
+    ce = _port_air().ce_blowup
+    for g in ranks[1]:
+        assert g["chunk_cols"] == [2, 1, ce]
+
+
 def test_halo_is_the_next_ranks_first_points(ranks):
     x = _inputs()["halo"]
     world, got = ranks
@@ -283,6 +325,8 @@ def test_dryrun_roots_equal_the_golden_roots(world):
         assert r["roots"] == want and r["rows"] == 64
         assert set(r["seconds"]) == {"lde", "commit", "composition", "deep",
                                      "fri_fold"}
+        assert set(r["seconds_warm"]) == set(r["seconds"])
+        assert r["chunk_cols"] == [72, 9, 8]    # the CPU: all the columns
 
 
 def test_single_device_mode_equals_the_golden_roots():
