@@ -9,7 +9,8 @@ Merkle roots (main, aux, constraint, first FRI fold) are compared with the
 single-device pipeline's. The fixed numbers are part of the reference and
 are the JAX package's, so at 64 rows the roots equal its committed
 `dryrun_golden.json`, of which `dryrun_golden.json` beside this module is
-the port's own copy.
+the port's own copy, and at 2^14 rows `dryrun_golden_2e14.json`, the roots
+the JAX package's single-device pipeline gives there.
 
 Two modes, equal roots:
 - `mesh=None`: one device, through the prover's own stage code
@@ -65,6 +66,12 @@ from .sharded import (fold_leaf_columns, stage_commit, stage_composition,
                       stage_deep, stage_fri_fold, stage_lde)
 
 GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "dryrun_golden.json")
+# the committed roots of the default program by trace rows: at 2^14 rows
+# `aero_tpu`'s `single_device_dryrun_roots(trace_steps=1 << 14)`, made on
+# the CPU (`tests/test_torch_sharded_scale.py` re-derives it)
+GOLDEN_PATHS = {64: GOLDEN_PATH,
+                1 << 14: os.path.join(os.path.dirname(__file__),
+                                      "dryrun_golden_2e14.json")}
 ROOT_NAMES = ("main", "aux", "constraint", "fold")
 
 # exercises u32 and memory operations, so the chiplet rows are not empty
@@ -383,17 +390,16 @@ def dryrun_prove_core(world: int, trace_steps: int = 64, device=None,
     compare every root with the single-device pipeline's. The ranks' LDEs
     take `cols_per_chunk` columns at a time (None: `dist_ntt.lde_chunk_cols`).
 
-    The reference roots are `reference` if given; at 64 rows of the
-    default program the committed golden file; else a single-device run on
-    `device` here in the caller's process."""
+    The reference roots are `reference` if given; for the default program
+    at a row count of `GOLDEN_PATHS` the committed golden file; else a
+    single-device run on `device` here in the caller's process."""
     devices = rank_devices(world, device, exchange)
+    if (reference is None and source == DRYRUN_SRC
+            and tuple(inputs) == (0, 0)):
+        reference = golden_roots(trace_steps)
     if reference is None:
-        if trace_steps == 64 and source == DRYRUN_SRC:
-            with open(GOLDEN_PATH) as f:
-                reference = json.load(f)["roots"]
-        else:
-            reference = single_device_dryrun(trace_steps, device, source,
-                                             inputs)["roots"]
+        reference = single_device_dryrun(trace_steps, device, source,
+                                         inputs)["roots"]
     _ready_builds(devices[0] != "cpu")
     ranks = run_ranks(_rank_pipeline, world, devices,
                       (trace_steps, source, tuple(inputs), cols_per_chunk),
@@ -406,6 +412,15 @@ def dryrun_prove_core(world: int, trace_steps: int = 64, device=None,
     ok = [list(map(int, r)) for r in reference] == roots
     return DryrunOut(*(tuple(r) for r in roots), matches_single_device=ok,
                      ranks=tuple(ranks))
+
+
+def golden_roots(trace_steps: int) -> Optional[List[List[int]]]:
+    """The committed roots of the default program at `trace_steps` rows,
+    or None where none is committed."""
+    if trace_steps not in GOLDEN_PATHS:
+        return None
+    with open(GOLDEN_PATHS[trace_steps]) as f:
+        return json.load(f)["roots"]
 
 
 def root_hex(words) -> str:

@@ -42,9 +42,18 @@ each of which raises on a failed check (so the script exits non-zero):
      most 250 K1 launches, and no `torch.roll` of the trace, no `torch.cat`
      of the coefficient rows and no zero-padded LDE input (`coset_pad`,
      `torch.zeros` of rows of 2^23) on the card; prints stage times, wall
-     clocks,
-     peak memory, sha256 (`--proof-out FILE` writes the proof with its
-     public inputs);
+     clocks, peak memory and sha256, which must equal the committed
+     `tests/golden/torch_port/miden_2e20_rows.json` (`--proof-out FILE`
+     writes the proof with its public inputs first);
+  4b. the same program at each size of which `aero_tpu`'s proof is
+     committed beside it (`miden_longfib_2e14.bin`, 2^14 rows, made on the
+     CPU) through `sdk.prove`: byte for byte that proof (on a difference
+     the first part that differs is named), and verified; each size's
+     seconds, launches and peak device memory are printed beside the
+     card's name and power limit; then the golden proof with constraint
+     evaluation and DEEP in 8 fragments, the last one's next-row frame
+     wrapping round the domain (the path of proofs from 2^18 rows on):
+     `aero_tpu`'s digest, one K5 launch a fragment;
   5. the served path: a `SubmissionServer` on an ephemeral port accepts the
      2^20-row proof (same receipt twice) and the golden proof, refuses a
      tampered nonce and answers garbage with HTTP 400;
@@ -52,7 +61,10 @@ each of which raises on a failed check (so the script exits non-zero):
      parser re-encodes it as Cairo memory and `cairo_sim` accepts it;
   7. the multi-device path: the dry-run pipeline of `parallel/` (`MidenAir`,
      72 + 9 columns, 112 constraints, blowup 8, folding 8) at 64 rows
-     against the committed golden roots, the single device at 2^18 rows
+     against the committed golden roots, at 2^14 rows the single device and
+     world 1 on `nccl` (world 4 on `nccl` too where there are four cards)
+     against `aero_tpu`'s roots there (`parallel/dryrun_golden_2e14.json`,
+     made on the CPU), the single device at 2^18 rows
      (phase 8 repeats it), and at the main path's 2^20 rows (a real trace,
      a 2^23-point domain) against the single-device pipeline run on the
      card here. With one card the mesh is driven two ways and the lines say
@@ -139,8 +151,17 @@ import bench_gpu
 from bench_gpu import cuda_ms, host_ms, long_fib_source
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(HERE, "tests", "golden", "torch_port",
-                      "miden_fib10_1024.json")
+GOLDEN_DIR = os.path.join(HERE, "tests", "golden", "torch_port")
+GOLDEN = os.path.join(GOLDEN_DIR, "miden_fib10_1024.json")
+# the card's own 2^20-row proof (phase 4 keeps its sha256)
+SCALE_DIGEST = os.path.join(GOLDEN_DIR, "miden_2e20_rows.json")
+# aero_tpu's proofs of the scale program, `miden_longfib_2e<k>.bin` at 2^k
+# rows for each k here, made on the CPU (`tests/test_torch_slice_scale.py`):
+# phase 4b proves each size on the card
+REFERENCE_PROOF = os.path.join(GOLDEN_DIR, "miden_longfib_2e{}")
+REFERENCE_LOG_ROWS = (14,)
+GOLDEN_LOG_FRAG = 10        # phase 4b: the golden proof's 2^13 points in 8
+                            # fragments
 SEED = 20260
 NTT_SRC = "aero_tpu_torch/csrc/ntt.cu"
 B2S_SRC = "aero_tpu_torch/csrc/blake2s.cu"
@@ -1745,16 +1766,88 @@ def phase_scale(dev, kernels, proof_out):
     _verify(res, r.prep.src)
     log(f"[phase 4] 2^20-row proof verifies under spec.verifier (air=port"
         f" air) in {time.perf_counter() - t0:.3f} s")
-    log(f"[phase 4] 2^20-row proof sha256 "
-        f"{hashlib.sha256(data).hexdigest()}")
-    if proof_out:
+    with open(SCALE_DIGEST) as f:
+        want = json.load(f)
+    digest = hashlib.sha256(data).hexdigest()
+    log(f"[phase 4] 2^20-row proof sha256 {digest}, {len(data)} B; committed "
+        f"{want['sha256']}, {want['length']} B")
+    if proof_out:     # written before the check, to remake the file
         os.makedirs(os.path.dirname(os.path.abspath(proof_out)),
                     exist_ok=True)
         with open(proof_out, "wb") as f:
             f.write(dump_proof_file(res.native_pub, res.native_proof))
         log(f"[phase 4] wrote the proof with its public inputs to "
             f"{proof_out}")
+    check((digest, len(data)) == (want["sha256"], want["length"]),
+          "the 2^20-row proof == the committed miden_2e20_rows.json")
     return res, r
+
+
+def phase_reference_sizes(dev, smi: str) -> None:
+    """The scale program at each size of `REFERENCE_LOG_ROWS` through
+    `sdk.prove` on the card: its bytes must equal `aero_tpu`'s committed
+    proof (on a difference, the first part that differs is named), and it
+    must verify. Then the golden proof in fragments."""
+    from aero_tpu_torch.tools.proof_diff import first_difference
+    for log_rows in REFERENCE_LOG_ROWS:
+        path = REFERENCE_PROOF.format(log_rows)
+        with open(path + ".json") as f:
+            want = json.load(f)
+        with open(path + ".bin", "rb") as f:
+            reference = f.read()
+        src = long_fib_source(((1 << log_rows) - 64) // 12)
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated(dev)    # earlier phases' tables
+        torch.cuda.reset_peak_memory_stats(dev)
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = _prove(src, 1 << log_rows, dev)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        counts = _launches()
+        peak = torch.cuda.max_memory_allocated(dev) - held
+        data = res.native_proof.to_bytes()
+        digest = hashlib.sha256(data).hexdigest()
+        log(f"[phase 4b] 2^{log_rows} rows, sdk.prove (VM run, proof, "
+            f"protobuf): {dt:.3f} s, peak device memory {peak} B above the "
+            f"{held} B held before it, {len(data)} B, sha256 {digest}; "
+            f"aero_tpu's {want['sha256']}, {want['length']} B; {smi}; "
+            f"launches {json.dumps(counts)}")
+        where = first_difference(data, reference)
+        check(where is None and (digest, len(data)) == (want["sha256"],
+                                                        want["length"]),
+              f"the card's 2^{log_rows}-row proof == aero_tpu's (first part "
+              f"that differs: {where})")
+        for name in PATH_KERNELS:
+            check(counts[name] > 0,
+                  f"{name} launched in the 2^{log_rows}-row proof")
+        _verify(res, src)
+        log(f"[phase 4b] 2^{log_rows} rows: equal to aero_tpu's proof byte for"
+            f" byte; verifies under spec.verifier (air=port air)")
+    # the fragment path of proofs from 2^18 rows on (constraint evaluation
+    # and DEEP in fragments, the last one's next-row frame wrapping round
+    # the domain) at the golden proof's size, against aero_tpu's digest
+    from aero_tpu_torch.prover import prover as prover_mod
+    from aero_tpu_torch.vm import fibonacci_source
+    with open(GOLDEN) as f:
+        want = json.load(f)
+    frag = prover_mod.FRAG
+    prover_mod.FRAG = 1 << GOLDEN_LOG_FRAG
+    try:
+        _reset_launches()
+        res = _prove(fibonacci_source(10), 1024, dev)
+    finally:
+        prover_mod.FRAG = frag
+    counts = _launches()
+    data = res.native_proof.to_bytes()
+    digest = hashlib.sha256(data).hexdigest()
+    log(f"[phase 4b] golden proof in fragments of 2^{GOLDEN_LOG_FRAG} points "
+        f"(8, the last wrapping): sha256 {digest}; K5 launches "
+        f"{counts['miden_frag_eval']}, K4 {counts['gl_deep_combine']}")
+    check(digest == want["sha256"] and len(data) == want["length"]
+          and counts["miden_frag_eval"] == 8,
+          "the golden proof in 8 fragments == aero_tpu's digest, one K5 "
+          "launch a fragment")
 
 
 def phase_served(scale_res, golden_res) -> None:
@@ -1885,6 +1978,7 @@ DRYRUN_KERNELS = ("gl_colntt", "blake2s_hash_columns",
 LOG_MXU_DRYRUN_ROWS = 18   # the single-device run phase 8 repeats through
                            # ntt_mxu
 LOG_MESH_ROWS = 20         # the mesh's depth: the main path's trace
+LOG_REFERENCE_MESH_ROWS = 14   # the depth of aero_tpu's committed roots
 # the meshes phase 7 drives on one card at 2^LOG_MESH_ROWS rows, and the
 # one it drives where there are four cards
 MESHES = ((1, "device", "world 1, nccl"),
@@ -2129,8 +2223,7 @@ def phase_dryrun(dev, gen, kernels):
                 + json.dumps(r["launches"]) + "; " + peaks(r))
         return total
 
-    with open(dr.GOLDEN_PATH) as f:
-        golden = json.load(f)["roots"]
+    golden = dr.golden_roots(64)
     for world, exchange, how in MESHES:
         t0 = time.perf_counter()
         out = dr.dryrun_prove_core(world, 64, device=dev, exchange=exchange,
@@ -2138,6 +2231,25 @@ def phase_dryrun(dev, gen, kernels):
         report(f"64 rows, {how}", out, golden, 64, world)
         log(f"[phase 7] 64 rows, {how}: equal to the committed golden roots;"
             f" {time.perf_counter() - t0:.3f} s with the start of the ranks")
+    # aero_tpu's roots at 2^14 rows: the single device and world 1 on nccl
+    # (world 4 on nccl too where there are four cards)
+    rows = 1 << LOG_REFERENCE_MESH_ROWS
+    golden = dr.golden_roots(rows)
+    single = dr.single_device_dryrun(rows, dev)
+    check(single["roots"] == golden, f"2^{LOG_REFERENCE_MESH_ROWS} rows, "
+          "single device: roots equal aero_tpu's committed ones")
+    reference_runs = [MESHES[0]]
+    if torch.cuda.device_count() >= NCCL_WORLD4[0]:
+        reference_runs.append(NCCL_WORLD4)
+    for world, exchange, how in reference_runs:
+        t0 = time.perf_counter()
+        out = dr.dryrun_prove_core(world, rows, device=dev, exchange=exchange,
+                                   reference=golden, timeout_s=300)
+        what = f"2^{LOG_REFERENCE_MESH_ROWS} rows, {how}"
+        report(what, out, golden, rows, world)
+        log(f"[phase 7] {what}: equal to aero_tpu's committed roots (and the "
+            f"single device's on the card); {time.perf_counter() - t0:.3f} s"
+            " with the start of the ranks")
 
     def single_device(log_rows):
         rows = 1 << log_rows
@@ -2674,6 +2786,7 @@ def main(argv=None) -> int:
     phase_field(dev, gen, kernels, sass, clock_hz)
     golden_res, golden_digest, proof_bench = phase_golden(dev)
     scale_res, scale_bench = phase_scale(dev, kernels, proof_out)
+    phase_reference_sizes(dev, smi)
     scale_bench = scale_bench._replace(       # phase 9 needs the times only
         prep=scale_bench.prep._replace(trace=None, air=None))
     phase_served(scale_res, golden_res)

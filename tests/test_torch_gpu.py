@@ -315,6 +315,29 @@ def test_fib_proof_on_card_equals_cpu(cuda_device):
     assert card.to_bytes() == cpu.to_bytes()
 
 
+def test_scale_program_on_the_card_equals_aero_tpus_proof(cuda_device):
+    """`long_fib_source(1360)` at 2^14 rows, default options, through
+    `sdk.prove` on the card: byte for byte `aero_tpu`'s proof, committed
+    under tests/golden/torch_port/."""
+    import os
+    from aero_tpu_torch import sdk
+    from aero_tpu_torch.sdk.pb import aero_pb2 as pb
+    from aero_tpu_torch.tools.proof_diff import first_difference
+    from bench_gpu import long_fib_source
+    log_rows = 14
+    path = os.path.join(os.path.dirname(__file__), "golden", "torch_port",
+                        f"miden_longfib_2e{log_rows}.bin")
+    with open(path, "rb") as f:
+        want = f.read()
+    program = pb.MidenProgram(
+        program=long_fib_source(((1 << log_rows) - 64) // 12))
+    inputs = pb.MidenProgramInputs(stack_init=[1, 0])   # top-first [0, 1]
+    got = sdk.prove(program, inputs, min_rows=1 << log_rows)
+    data = got.native_proof.to_bytes()
+    assert first_difference(data, want) is None
+    assert data == want
+
+
 def test_sdk_prove_defaults_to_the_card(cuda_device):
     from aero_tpu_torch import sdk
     from aero_tpu_torch.ntt import ntt_cuda as nc
@@ -332,17 +355,17 @@ def test_sdk_prove_defaults_to_the_card(cuda_device):
     assert card.proof.SerializeToString() == cpu.proof.SerializeToString()
 
 
+@pytest.mark.parametrize("rows", [64, 1 << 14])
 @pytest.mark.parametrize("world,exchange", [(1, "device"), (2, "host"),
                                             (4, "host")])
 def test_dryrun_on_the_card_equals_the_golden_roots(cuda_device, world,
-                                                    exchange):
+                                                    exchange, rows):
     """World 1 on nccl; worlds 2 and 4 as processes sharing the card with
-    the exchanges staged through pinned host memory and gloo."""
-    import json
+    the exchanges staged through pinned host memory and gloo; at 64 rows
+    and at 2^14 rows (`aero_tpu`'s roots there, made on the CPU)."""
     from aero_tpu_torch.parallel import dryrun as DR
-    with open(DR.GOLDEN_PATH) as f:
-        want = json.load(f)["roots"]
-    out = DR.dryrun_prove_core(world, 64, exchange=exchange, timeout_s=300)
+    want = DR.golden_roots(rows)
+    out = DR.dryrun_prove_core(world, rows, exchange=exchange, timeout_s=300)
     assert out.matches_single_device
     assert [list(r) for r in out[:4]] == want
     for r in out.ranks:
@@ -385,14 +408,12 @@ def test_dryrun_never_shares_a_card_unasked(cuda_device):
     assert DR.rank_devices(more, None, "host") == ["cuda:0"] * more
 
 
+@pytest.mark.parametrize("rows", [64, 1 << 14])
 def test_single_device_dryrun_on_the_card_equals_the_golden_roots(
-        cuda_device):
-    import json
+        cuda_device, rows):
     from aero_tpu_torch.parallel import dryrun as DR
-    with open(DR.GOLDEN_PATH) as f:
-        want = json.load(f)["roots"]
-    got = DR.single_device_dryrun(64)
-    assert got["roots"] == want
+    got = DR.single_device_dryrun(rows)
+    assert got["roots"] == DR.golden_roots(rows)
     assert got["launches"]["gl_colntt"] > 0
 
 
