@@ -31,6 +31,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .._device import index_tensor, to_host, upload
 from . import gl_cuda
 from .sym import Sym, SymGraph
 from . import sym
@@ -65,13 +66,13 @@ def scalar(v: int, device) -> torch.Tensor:
 def from_u64(arr, device) -> torch.Tensor:
     """numpy uint64 array (any u64, not necessarily < p) -> canonical tensor."""
     a = np.ascontiguousarray(np.asarray(arr, dtype=np.uint64))
-    t = torch.from_numpy(a.view(np.int64).copy()).to(device)
+    t = upload(torch.from_numpy(a.view(np.int64).copy()), device)
     return canonicalize(t)
 
 
 def to_u64(t: torch.Tensor) -> np.ndarray:
     """Field tensor -> numpy uint64 (host copy)."""
-    return t.detach().cpu().contiguous().numpy().view(np.uint64).copy()
+    return to_host(t.detach()).contiguous().numpy().view(np.uint64).copy()
 
 
 def from_limbs(lo, hi, device) -> torch.Tensor:
@@ -99,7 +100,7 @@ def gf_concat(parts: Sequence[torch.Tensor], axis: int = 0) -> torch.Tensor:
 
 
 def gf_take(x: torch.Tensor, idx, axis: int = 0) -> torch.Tensor:
-    idx = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=x.device)
+    idx = index_tensor(idx, x.device)
     return torch.index_select(x, axis, idx)
 
 

@@ -16,6 +16,8 @@ import threading
 import torch
 
 from .. import _build
+from .._device import upload
+from ..utils import tracing
 from .blake2s import (blake2s_words as blake2s_words_plain,
                       hash_columns_t as hash_columns_plain,
                       merge_level_t as merge_level_plain,
@@ -136,7 +138,7 @@ def _grind_words(device: torch.device):
                           if device.index is None else device.index)
     if device not in _GRIND_WORDS:
         _GRIND_WORDS[device] = (
-            torch.tensor([-1, 0, 0], dtype=torch.int64, device=device),
+            upload(torch.tensor([-1, 0, 0], dtype=torch.int64), device),
             torch.empty(1, dtype=torch.int64).pin_memory())
     return _GRIND_WORDS[device]
 
@@ -169,6 +171,7 @@ def grind_batch(seed: bytes, grinding_bits: int, device: torch.device,
     with _GRIND_LOCK:
         host = grind_launch(seed, grinding_bits, device, base, count)
         torch.cuda.current_stream(device).synchronize()
+        tracing.count("syncs")
         return int(host[0]) & NOT_FOUND
 
 

@@ -8,7 +8,8 @@ commit, with `prove` and `prove_batch` both. Leaves are the hash_elements
 digests of the rows of column-major felts (w, m); every level is an
 (8, size) int64 tensor of u32 digest words. A batch opening gathers only the
 digests the proof ships (`spec.merkle.batch_proof_coords`), one device gather
-per level.
+per level, under the tracing span `merkle_open`: on a card each level's
+upload of offsets and read of digests wait for the stream (two `syncs`).
 
 The TPU package chunked the leaf axis to bound an 8x word message in HBM
 and finished the levels below 2^15 on the host to dodge relay module
@@ -23,7 +24,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from .._device import index_tensor, to_host
 from ..spec.merkle import BatchMerkleProof, batch_proof_coords
+from ..utils import span
 
 from ..hash.blake2s_cuda import hash_columns, merge_level
 
@@ -39,7 +42,7 @@ class ResidentMerkleTree:
     def __init__(self, levels: List[torch.Tensor]):
         self.levels = levels
         self.n = int(levels[0].shape[1])
-        self._root = _digest_bytes(levels[-1][:, 0].cpu().numpy())
+        self._root = _digest_bytes(to_host(levels[-1][:, 0]).numpy())
 
     @property
     def root(self) -> bytes:
@@ -57,9 +60,9 @@ class ResidentMerkleTree:
         out = {}
         for log_size, coords in by_level.items():
             lvl = self.levels[self.depth - log_size]
-            offs = torch.as_tensor([c - (1 << log_size) for c in coords],
-                                   dtype=torch.int64, device=lvl.device)
-            got = lvl[:, offs].cpu().numpy()
+            offs = index_tensor([c - (1 << log_size) for c in coords],
+                                lvl.device)
+            got = to_host(lvl[:, offs]).numpy()
             for j, c in enumerate(coords):
                 out[c] = _digest_bytes(got[:, j])
         return out
@@ -76,14 +79,15 @@ class ResidentMerkleTree:
         return [got[c] for c in coords]
 
     def prove_batch(self, indexes) -> BatchMerkleProof:
-        leaf_coords, node_coords = batch_proof_coords(self.n, self.depth,
-                                                      indexes)
-        got = self._fetch(list(leaf_coords)
-                          + [c for lst in node_coords for c in lst])
-        return BatchMerkleProof(
-            leaves=[got[c] for c in leaf_coords],
-            nodes=[[got[c] for c in lst] for lst in node_coords],
-            depth=self.depth)
+        with span("merkle_open"):
+            leaf_coords, node_coords = batch_proof_coords(self.n, self.depth,
+                                                          indexes)
+            got = self._fetch(list(leaf_coords)
+                              + [c for lst in node_coords for c in lst])
+            return BatchMerkleProof(
+                leaves=[got[c] for c in leaf_coords],
+                nodes=[[got[c] for c in lst] for lst in node_coords],
+                depth=self.depth)
 
     def to(self, device) -> "ResidentMerkleTree":
         """Move the levels (checkpointing: ProverState.to_host/to_device)."""

@@ -54,6 +54,7 @@ from .. import _build
 from ..field import gf_full, mul, power_series, square
 from ..field.gl import add_plain, mul_plain, sub_plain
 from ..spec import field as F
+from .._device import synchronize
 from ..utils.tracing import span
 from . import tables
 
@@ -174,12 +175,12 @@ def _cached(key, build):
             _cache.move_to_end(key)
             return _cache[key]
     # a span of its own, closed by a synchronize: what a cold proof's stage
-    # spends building tables (`chip_smoke.py --profile`)
+    # spends building tables
     with span("ntt_tables"):
         entry = build()
         for t in entry:
             if isinstance(t, torch.Tensor) and t.is_cuda:
-                torch.cuda.synchronize(t.device)
+                synchronize(t.device)
     size = _nbytes(entry)
     with _cache_lock:
         if size <= TABLE_CACHE_BYTES:

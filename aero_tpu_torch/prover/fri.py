@@ -14,9 +14,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Tuple
 
-import numpy as np
 import torch
 
+from .._device import index_tensor
 from ..spec import field as F
 
 from ..field import from_u64, gf_sum, mul, scalar, to_u64
@@ -69,9 +69,7 @@ class FriLayer:
         """Leaf rows (len(positions), ff), gathered on the device."""
         m = self.evals.shape[-1]
         cols = self.evals.reshape(self.ff, m // self.ff)
-        idx = torch.as_tensor(np.asarray(list(positions), dtype=np.int64),
-                              device=cols.device)
-        return cols[:, idx].T
+        return cols[:, index_tensor(list(positions), cols.device)].T
 
 
 def commit_fri(deep_evals: torch.Tensor, coin, ff: int, max_remainder: int

@@ -14,7 +14,10 @@ The counterpart of `aero_tpu/prover/prover.py`, stage for stage:
 Each stage reads and writes a `ProverState`, which `prove_resumable`
 checkpoints after every stage. Stages run under the tracing spans of
 `..utils`, named as the JAX package names them; on a CUDA device each stage ends
-in a synchronize, so a span measures the stage's device work.
+in a synchronize, so a span measures the stage's device work. The bulk
+Fiat-Shamir draws on the host run under spans `coin_draws`, the Merkle
+openings under `merkle_open`, and every wait of the host for the CUDA
+stream counts one `syncs` on the innermost span (`.._device`).
 
 The transcript is `..spec.coin.RandomCoin`, seeded only from
 public inputs and commitments, and the PoW search returns the minimal
@@ -43,7 +46,8 @@ from ..spec.coin import RandomCoin
 from ..spec.hashing import hash_elements
 from ..spec.proof import (FriProof, FriProofLayer, OodFrame, Queries,
                                  StarkProof, felts_to_bytes)
-from ..utils import span
+from .._device import index_tensor, synchronize, upload
+from ..utils import count, span
 
 from ..air import generated, symbolic
 from ..air.air import Air
@@ -243,7 +247,7 @@ class ConstraintMerger:
                    + [c if is_main else w + c
                       for is_main, c, _ in self.asrt_route])
             self._k5 = (_vec(self.rands, device), adjs,
-                        torch.tensor(idx, dtype=torch.int32).to(device))
+                        upload(torch.tensor(idx, dtype=torch.int32), device))
         return self._k5
 
     def k5_inputs(self, main_cur, main_nxt, aux_cur, aux_nxt,
@@ -370,7 +374,8 @@ def stage_aux_commit(air: Air, st: ProverState) -> None:
     if not air.aux_width:
         return
     log_blowup = air.options.blowup_factor.bit_length() - 1
-    st.aux_rand = st.coin.draw_elements(air.aux_rands)
+    with span("coin_draws"):
+        st.aux_rand = st.coin.draw_elements(air.aux_rands)
     aux_trace = air.build_aux_trace(st.main_trace, st.aux_rand)
     st.aux_polys = intt(aux_trace)
     st.aux_lde = lde(st.aux_polys, log_blowup, F.DOMAIN_OFFSET)
@@ -393,9 +398,11 @@ def stage_constraint_eval(air: Air, st: ProverState) -> None:
     # rands on the air, also when resuming past aux_commit
     air._aux_rand = [int(x) % F.P for x in st.aux_rand] or None
 
-    cc_transition = [st.coin.draw_pair()
-                     for _ in range(air.num_transition_constraints)]
-    cc_boundary = [st.coin.draw_pair() for _ in range(air.num_assertions)]
+    with span("coin_draws"):
+        cc_transition = [st.coin.draw_pair()
+                         for _ in range(air.num_transition_constraints)]
+        cc_boundary = [st.coin.draw_pair()
+                       for _ in range(air.num_assertions)]
 
     with span("constraint_prelude"):
         merger = ConstraintMerger(air, st.aux_rand, cc_transition,
@@ -418,6 +425,8 @@ def stage_constraint_eval(air: Air, st: ProverState) -> None:
     with span("composition_intt_lde"):
         # iNTT over the coset: divide out the offset powers
         cc = mul(intt(merged), power_series(F.inv(offset), m, 1, device))
+        if cc.is_cuda:
+            count("syncs")          # the read of the flag below
         if bool((cc[ce * n:] != 0).any()):
             raise ValueError("composition degree overflow: the trace does "
                              "not satisfy the AIR")
@@ -517,9 +526,10 @@ def stage_deep_composition(air: Air, st: ProverState) -> None:
     zg = F.mul(st.z, air.trace_generator)
     z_m = F.exp(st.z, ce)
 
-    deep_trace = [st.coin.draw_elements(3) for _ in range(n_cols)]
-    deep_constraints = st.coin.draw_elements(ce)
-    lam, mu = st.coin.draw_pair()
+    with span("coin_draws"):
+        deep_trace = [st.coin.draw_elements(3) for _ in range(n_cols)]
+        deep_constraints = st.coin.draw_elements(ce)
+        lam, mu = st.coin.draw_pair()
 
     x_dom = _ceval_static(air, device)[0]
     args = (_vec(st.cur_row, device), _vec(st.nxt_row, device),
@@ -556,14 +566,13 @@ def stage_fri_pow(air: Air, st: ProverState) -> None:
     st.pow_nonce = grind_pow(st.coin.seed, opts.grinding_factor,
                              st.deep.device)
     st.coin.reseed_with_int(st.pow_nonce)
-    st.positions = st.coin.draw_integers(opts.num_queries, m)
+    with span("coin_draws"):
+        st.positions = st.coin.draw_integers(opts.num_queries, m)
 
 
 def _open(tree: ResidentMerkleTree, cols: torch.Tensor,
           idxs: List[int]) -> Queries:
-    idx = torch.as_tensor(np.asarray(idxs, dtype=np.int64),
-                          device=cols.device)
-    rows = to_u64(cols[:, idx].T)                          # (q, w)
+    rows = to_u64(cols[:, index_tensor(idxs, cols.device)].T)   # (q, w)
     return Queries(values=felts_to_bytes(rows.reshape(-1).tolist()),
                    paths=tree.prove_batch(idxs).serialize_nodes())
 
@@ -620,7 +629,7 @@ def _run_stage(i: int, air: Air, st: ProverState) -> None:
     with span(STAGES[i]):
         _STAGE_FNS[i](air, st)
         if st.device.startswith("cuda"):
-            torch.cuda.synchronize(st.device)
+            synchronize(st.device)
     st.stage += 1
 
 

@@ -172,7 +172,10 @@ def prove(program: pb.MidenProgram, inputs: pb.MidenProgramInputs,
           options: Optional[pb.ProofOptions] = None, min_rows: int = 64,
           device=None) -> ProveResult:
     """Execute `program` on the VM and prove the trace on `device` (the
-    CUDA card when `device` is None)."""
+    CUDA card when `device` is None). The span `execute` holds three that
+    partition it: `vm_execute` (the VM run), `air_build` (the program
+    hash, the public inputs and the AIR) and `trace_upload` (the trace's
+    copy to the device, which waits for the stream on a card)."""
     from ..air.miden import MidenAir, make_public_inputs
     from ..field import from_u64
     from ..prover import prove as run_prover
@@ -183,14 +186,18 @@ def prove(program: pb.MidenProgram, inputs: pb.MidenProgramInputs,
         else DEFAULT_OPTIONS
     stack_init = list(inputs.stack_init)
     with span("execute"):
-        trace, out_stack, overflow = execute_full(
-            program.program, list(reversed(stack_init)),
-            advice_tape=list(inputs.advice_tape), min_rows=min_rows)
-        pub = make_public_inputs(program_hash(program.program),
-                                 list(reversed(stack_init)), out_stack,
-                                 overflow=overflow)
-        air = MidenAir(trace.shape[1], pub, opts, program=program.program)
-        main_trace = from_u64(trace, device)
+        with span("vm_execute"):
+            trace, out_stack, overflow = execute_full(
+                program.program, list(reversed(stack_init)),
+                advice_tape=list(inputs.advice_tape), min_rows=min_rows)
+        with span("air_build"):
+            pub = make_public_inputs(program_hash(program.program),
+                                     list(reversed(stack_init)), out_stack,
+                                     overflow=overflow)
+            air = MidenAir(trace.shape[1], pub, opts,
+                           program=program.program)
+        with span("trace_upload"):
+            main_trace = from_u64(trace, device)
     proof = run_prover(air, main_trace, pub)
     with span("to_pb"):
         pub_pb = public_inputs_to_pb(pub)

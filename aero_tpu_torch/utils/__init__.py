@@ -1,1 +1,2 @@
-from .tracing import span, get_tracer, Tracer, TraceRecord
+from .tracing import (count, span, get_tracer, subtree, subtree_count,
+                      Tracer, TraceRecord)

@@ -333,7 +333,8 @@ def _timed_prove(prep: Prepared) -> ProofRun:
     proof, dt = _host_seconds(
         lambda: prove(prep.air, prep.trace, prep.pub), device)
     launches = {k: v for m in mods for k, v in m.LAUNCHES.items()}
-    spans = {s: tracer.total(s) for s in STAGES}
+    spans = {s: sum(r.duration_s for r in tracer.records if r.name == s)
+             for s in STAGES}
     peak = torch.cuda.max_memory_allocated(device) if _is_cuda(device) else 0
     return ProofRun(dt, proof, launches, spans, peak)
 

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch + CUDA port (`aero_tpu_torch`).
 
-    python3 chip_smoke.py [--proof-out FILE | --profile]
+    python3 chip_smoke.py [--proof-out FILE]
 
 Needs one CUDA card, `nvcc` and `cuobjdump`; builds the kernels from
 `aero_tpu_torch/csrc` and the C++ VM from `aero_tpu_torch/vm/core` at first
-use. It imports the port and `bench_gpu.py` only. Set-up, then nine phases,
+use. It imports the port and `bench_gpu.py` only. Set-up, then ten phases,
 each of which raises on a failed check (so the script exits non-zero):
 
   0. card name, power limit and clocks, torch/CUDA versions, kernel and VM
@@ -105,12 +105,12 @@ each of which raises on a failed check (so the script exits non-zero):
      `bench_mul`, `bench_lde_2e24`, which also holds the batched 2^24 LDE
      equal to `ntt.lde`'s single 2^27-point transform), each printing its
      metric record, and the proof records from the times of phases 3 and 4.
-
-`--profile` runs the set-up and no phase: it proves the 2^20-row trace six
-times and prints each proof's stage seconds, the seconds each stage spent
-building NTT tables, collector and allocator figures, the fifth stage by stage with its K1 launches by stage, the last
-one under `torch.profiler` (`profile_scale`), and its K1, K6 and K7
-launches.
+  10. the tracer's `syncs` counter: a proof of `long_fib_source` at 2^14
+     and at 2^20 rows (each after a proof to warm it) under
+     `torch.profiler`; the `syncs` counted inside each `prove_program`
+     must equal the stream and device synchronizes and synchronous copies
+     the profiler records inside that span's range; prints both counts and
+     the count by span.
 
 Kernel comparisons are exact (tolerance 0): finite-field and hash
 arithmetic. Launch counters are reset right before each proof and read
@@ -132,7 +132,6 @@ a JSON object with one entry per kernel of the proof path; the last line is
 from __future__ import annotations
 
 import contextlib
-import gc
 import hashlib
 import io
 import json
@@ -2608,105 +2607,44 @@ def phase_bench(dev, rng, gen, sass, clock_hz, proof_bench, scale_bench):
     bench_gpu.emit_proof(proof_bench)
 
 
-def profile_scale(dev, repeats: int = 3, top: int = 12) -> None:
-    """`--profile`: what a repeated 2^20-row proof costs and where.
-    `repeats` proofs of one prepared trace in a row and one more after the
-    program was executed anew, each with its stage seconds, the seconds of
-    each stage's NTT table builds (the first proof's `trace_commit` split
-    into table building and the rest), the seconds the Python collector
-    ran, its collections and the allocator's reserved bytes; one more stage by stage, with its K1 launches by stage; then one
-    more proof under `torch.profiler` (device kernel time, launches, idle
-    share, the kernels that take most)."""
+def phase_syncs(dev) -> None:
+    """Phase 10: the waits for the stream that the tracer counts against
+    those the profiler records, a proof at 2^14 and one at 2^20 rows."""
     from torch.profiler import ProfilerActivity, profile
-    src = long_fib_source(((1 << 20) - 64) // 12)
-    prep = bench_gpu._prepare(src, [0, 1], 1 << 20, 16, dev)
-    log(f"[profile] set-up (VM, public inputs, trace to the device): "
-        f"{prep.seconds:.3f} s")
-    gc_s = [0.0, 0.0]
-
-    def on_gc(phase, info):
-        if phase == "start":
-            gc_s[1] = time.perf_counter()
-        else:
-            gc_s[0] += time.perf_counter() - gc_s[1]
-
-    last_s = 0.0
-
-    def table_seconds():
-        """Seconds of the last proof's NTT table builds ("ntt_tables"
-        spans) in each stage that built any."""
-        from aero_tpu_torch.prover import STAGES
-        from aero_tpu_torch.utils import get_tracer
-        recs = get_tracer().records
-        builds = [r for r in recs if r.name == "ntt_tables"]
-        out = {}
-        for st in (r for r in recs if r.name in STAGES):
-            t = sum(b.duration_s for b in builds
-                    if st.start <= b.start <= st.start + st.duration_s)
-            if t:
-                out[st.name] = t
-        return out
-
-    def one(i, fresh):
-        nonlocal last_s
-        gc_s[0] = 0.0
-        before = [g["collections"] for g in gc.get_stats()]
-        run = bench_gpu._timed_prove(prep)
-        after = [g["collections"] for g in gc.get_stats()]
-        last_s = run.seconds
-        log("[profile] " + json.dumps({
-            "proof": i, "fresh_setup": fresh, "seconds": run.seconds,
-            "spans": run.spans, "ntt_table_seconds": table_seconds(),
-            "gc_seconds": gc_s[0],
-            "gc_collections": [a - b for a, b in zip(after, before)],
-            "peak_bytes": run.peak_bytes,
-            "reserved_bytes": torch.cuda.memory_reserved(dev)}))
-
-    gc.callbacks.append(on_gc)
-    try:
-        for i in range(repeats):
-            one(i + 1, i == 0)
-        # as a caller that executes the program anew for each proof does
-        del prep
-        prep = bench_gpu._prepare(src, [0, 1], 1 << 20, 16, dev)
-        one(repeats + 1, True)
-    finally:
-        gc.callbacks.remove(on_gc)
-    # one more proof stage by stage: where the K1 launches that remain are
-    from aero_tpu_torch.field import gl_cuda
-    from aero_tpu_torch.prover import prover as PR
-    st = PR.ProverState(pub_inputs=prep.pub, device=str(dev),
-                        main_trace=prep.trace)
-    k1 = {}
-    for i, stage in enumerate(PR.STAGES):
-        gl_cuda.reset_launches()
-        PR._run_stage(i, prep.air, st)
-        k1[stage] = gl_cuda.LAUNCHES["gl_elementwise"]
-    del st
-    log(f"[profile] K1 launches of a proof by stage: {json.dumps(k1)}")
-    # the profiler's first session of the process: a later one has been
-    # seen to report no device events at all (PR 8's first run)
-    mul_kernels = bench_gpu.mul_launches(device=dev)
-    check(mul_kernels == 1, f"one field.mul is one device kernel, not "
-          f"{mul_kernels}")
+    from aero_tpu_torch.prover import prove
+    from aero_tpu_torch.utils import get_tracer, subtree, subtree_count
+    from aero_tpu_torch.utils.tracing import profiled_syncs
+    logs = (14, 20)
+    preps = [bench_gpu._prepare(long_fib_source(((1 << k) - 64) // 12),
+                                [0, 1], 1 << k, 16, dev) for k in logs]
+    for prep in preps:
+        prove(prep.air, prep.trace, prep.pub)
+    tracer = get_tracer()
+    tracer.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run = bench_gpu._timed_prove(prep)
-    launches, dev_s, rows = bench_gpu._device_kernels(prof)
-    check(launches > 0, "torch.profiler saw the device's kernels")
-    log(f"[profile] a proof launches K1 {run.launches['gl_elementwise']} "
-        f"times, K6 {run.launches['miden_aux_factors']}, K7 "
-        f"{run.launches['gl_eval_multi']} (one call of two launches)")
-    log("[profile] under torch.profiler: " + json.dumps({
-        "seconds": run.seconds, "device_kernel_seconds": dev_s,
-        "device_launches": launches,
-        "device_kernels_a_field_mul": mul_kernels,
-        "wrapper_launches": run.launches,
-        "idle_share": 1 - dev_s / run.seconds,
-        "idle_share_of_the_last_proof_not_profiled": 1 - dev_s / last_s,
-        "spans": run.spans,
-        "top": [{"kernel": k[:80], "launches": c, "seconds": s}
-                for k, c, s in rows[:top]]}))
+        for prep in preps:
+            prove(prep.air, prep.trace, prep.pub)
+    recs = list(tracer.records)
+    tracer.reset()
+    roots = sorted((r for r in recs if r.name == "prove_program"),
+                   key=lambda r: r.index)
+    counted = [subtree_count(recs, r, "syncs") for r in roots]
+    seen = profiled_syncs(prof, "prove_program")
+    check(any(e.name == "cudaLaunchKernel" for e in prof.events()),
+          "torch.profiler recorded the runtime's calls")
+    for k, root, c, s in zip(logs, roots, counted, seen):
+        by_span: dict = {}
+        for r in subtree(recs, root):
+            if r.counters.get("syncs"):
+                by_span[r.name] = by_span.get(r.name, 0) + r.counters["syncs"]
+        log(f"[phase 10] 2^{k} rows: {c} syncs counted inside prove_program, "
+            f"{s} synchronizing calls in its range; by span "
+            f"{json.dumps(by_span)}")
+    check(seen == counted, f"the syncs counted {counted} equal the "
+          f"synchronizing calls the profiler saw {seen}")
+    del preps
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -2748,9 +2686,6 @@ def main(argv=None) -> int:
     log(f"[set-up] VM ready (built at first run) in "
         f"{time.perf_counter() - t0:.3f} s")
     dev = torch.device("cuda", 0)
-    if "--profile" in argv:
-        profile_scale(dev)
-        return 0
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -2797,6 +2732,7 @@ def main(argv=None) -> int:
     phase_mxu(dev, rng, gen, golden_digest, dryrun_roots)
     torch.cuda.empty_cache()
     phase_bench(dev, rng, gen, sass, clock_hz, proof_bench, scale_bench)
+    phase_syncs(dev)
 
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",

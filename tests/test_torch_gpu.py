@@ -355,6 +355,36 @@ def test_sdk_prove_defaults_to_the_card(cuda_device):
     assert card.proof.SerializeToString() == cpu.proof.SerializeToString()
 
 
+@pytest.mark.parametrize("log_rows", [14, 20])
+def test_the_syncs_counter_equals_the_profilers_synchronizing_calls(
+        cuda_device, log_rows):
+    """Two proofs of `long_fib_source` at 2^14 and 2^20 rows under
+    torch.profiler, the first possibly cold: the `syncs` that the tracer
+    counts inside each `prove_program` equal the stream and device
+    synchronizes and synchronous copies that the profiler records inside
+    that span's range. A miss is a wait the counter does not see."""
+    from torch.profiler import ProfilerActivity, profile
+    from aero_tpu_torch.utils import get_tracer, subtree_count
+    from aero_tpu_torch.utils.tracing import profiled_syncs
+    from bench_gpu import _prepare, long_fib_source
+    prep = _prepare(long_fib_source(((1 << log_rows) - 64) // 12), [0, 1],
+                    1 << log_rows, 16, cuda_device)
+    tracer = get_tracer()
+    tracer.reset()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            prove(prep.air, prep.trace, prep.pub)
+    roots = sorted((r for r in tracer.records if r.name == "prove_program"),
+                   key=lambda r: r.index)
+    counted = [subtree_count(tracer.records, r, "syncs") for r in roots]
+    tracer.reset()
+    assert len(counted) == 2 and min(counted) > 0
+    assert any(e.name == "cudaLaunchKernel" for e in prof.events()), \
+        "the profiler recorded no runtime calls"
+    assert profiled_syncs(prof, "prove_program") == counted
+
+
 @pytest.mark.parametrize("rows", [64, 1 << 14])
 @pytest.mark.parametrize("world,exchange", [(1, "device"), (2, "host"),
                                             (4, "host")])
