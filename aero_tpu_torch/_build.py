@@ -66,6 +66,7 @@ SIGNATURES = {
     "blake2s_hash_columns": [_P, _I64, _I64, _P, _P],
     "blake2s_merge_level": [_P, _I64, _P, _P],
     "blake2s_grind_pow": [_U32] * 8 + [_I64, _I64, _I64, _I32, _P, _P, _P],
+    "merkle_gather": [_P, _I32, _P, _I64, _P, _P],
     # csrc/field.cu
     "gl_elementwise": _OPERAND + _OPERAND + [_P, _I64, _I32, _U64, _P],
     "gl_scan": [_P, _P, _P, _I64, _I64, _I64, _I32, _P],

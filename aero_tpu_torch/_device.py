@@ -51,6 +51,14 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
     return t.cpu()
 
 
+def wait_stream(device) -> None:
+    """Wait for the current stream of the CUDA `device`: what a kernel's or
+    a non-blocking copy's writes into pinned host memory need before the
+    host reads them."""
+    torch.cuda.current_stream(device).synchronize()
+    count("syncs")
+
+
 def synchronize(device) -> None:
     """Wait for every stream of the CUDA `device`."""
     torch.cuda.synchronize(device)

@@ -17,6 +17,8 @@
 //   blake2s_grind_pow     40-byte seed || u64le(nonce) messages; atomicMin
 //                         keeps the smallest nonce with enough leading zeros
 //                         (its design is described above `grind_kernel`).
+// One more entry point hashes nothing: merkle_gather reads the digests a
+// batch opening ships from every level of a tree in one launch.
 // Words travel as int64 tensors holding u32 values, like the plain PyTorch
 // versions in hash/blake2s.py.
 //
@@ -173,6 +175,39 @@ __global__ void merge_level_kernel(const u64* __restrict__ d, long long n,
   store_digest(h, out, n, i);
 }
 
+// Up to 64 levels of one tree, passed by value: the table sits in the
+// kernel's parameter bank, so no upload precedes the launch and no device
+// copy of it can go stale when the levels move.
+constexpr int kMaxLevels = 64;
+struct MerkleLevels {
+  const u64* p[kMaxLevels];
+};
+
+// The digests of a batch opening, read straight from pinned host memory
+// and written straight back to it: coords[k] is a flat-tree index (root 1,
+// leaves [n, 2n)), so the node lies at offset c - 2^lg of the level of
+// 2^lg nodes, lg = floor(log2 c), an (8, 2^lg) word-major array; out row k
+// is that digest's eight u32 words, its 32 bytes little-endian. One thread
+// a digest. What bounds it: nothing on the card, a few hundred scattered
+// 8-byte reads and 32-byte writes over PCIe; the kernel exists so that an
+// opening is one launch and one wait, with no copy before or after it,
+// instead of an upload, an index kernel and a read a level.
+__global__ void merkle_gather_kernel(const MerkleLevels levels, int depth,
+                                     const long long* __restrict__ coords,
+                                     long long K, uint4* __restrict__ out) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= K) return;
+  const long long c = coords[k];
+  const int lg = 63 - __clzll(c);
+  const long long size = 1ll << lg;
+  const u64* node = levels.p[depth - lg] + (c - size);
+  out[2 * k] = make_uint4((unsigned)node[0], (unsigned)node[size],
+                          (unsigned)node[2 * size], (unsigned)node[3 * size]);
+  out[2 * k + 1] =
+      make_uint4((unsigned)node[4 * size], (unsigned)node[5 * size],
+                 (unsigned)node[6 * size], (unsigned)node[7 * size]);
+}
+
 // The eight seed words of the proof-of-work message, passed by value: they
 // sit in the kernel's constant bank, so no upload and no tensor precedes
 // the launch and the compress reads them as immediate operands.
@@ -302,6 +337,29 @@ extern "C" int blake2s_merge_level(const void* d, long long n, void* out,
   if (n == 0) return (int)cudaSuccess;
   merge_level_kernel<<<grid_for(n), 256, 0, (cudaStream_t)stream>>>(
       (const u64*)d, n, (u64*)out);
+  return (int)cudaGetLastError();
+}
+
+// levels: host array of `nlevels` device pointers, level l an
+// (8, 2^(nlevels - 1 - l)) digest array; coords: K int64 flat-tree indexes
+// in pinned host memory, each in [1, 2^nlevels); out: K x 8 u32 in pinned
+// host memory, which the kernel writes in place. The call only enqueues:
+// the caller waits for the stream, then reads `out`. The caller keeps
+// every index in range.
+extern "C" int merkle_gather(const long long* levels, int nlevels,
+                             void* coords, long long K, void* out,
+                             void* stream) {
+  if (nlevels < 1 || nlevels > kMaxLevels) return (int)cudaErrorInvalidValue;
+  if (K == 0) return (int)cudaSuccess;
+  void* coords_dev = nullptr;     // the pinned buffers as the device sees them
+  void* out_dev = nullptr;
+  cudaError_t err = cudaHostGetDevicePointer(&coords_dev, coords, 0);
+  if (err == cudaSuccess) err = cudaHostGetDevicePointer(&out_dev, out, 0);
+  if (err != cudaSuccess) return (int)err;
+  MerkleLevels table = {};
+  for (int l = 0; l < nlevels; ++l) table.p[l] = (const u64*)levels[l];
+  merkle_gather_kernel<<<grid_for(K), 256, 0, (cudaStream_t)stream>>>(
+      table, nlevels - 1, (const long long*)coords_dev, K, (uint4*)out_dev);
   return (int)cudaGetLastError();
 }
 

@@ -123,6 +123,21 @@ def merge_level_t(d: torch.Tensor) -> torch.Tensor:
     return _hash_blocks([words], 64, d.shape[1] // 2, d.device)
 
 
+def merkle_gather_t(levels, coords: torch.Tensor) -> torch.Tensor:
+    """The digests at flat-tree indexes `coords` (K,) (root 1, leaves
+    [n, 2n)) of a tree's word-major levels (level l is (8, n >> l)) ->
+    (K, 8) int32, each row a digest's 32 bytes little-endian; one index a
+    level."""
+    depth = len(levels) - 1
+    log_size = torch.frexp(coords.to(torch.float64)).exponent.long() - 1
+    out = torch.empty((coords.shape[0], 8), dtype=torch.int64,
+                      device=coords.device)
+    for lg in log_size.unique().tolist():
+        sel = (log_size == lg).nonzero().squeeze(1)
+        out[sel] = levels[depth - lg][:, coords[sel] - (1 << lg)].t()
+    return out.to(torch.int32)
+
+
 def felt_rows_to_words(rows: torch.Tensor) -> torch.Tensor:
     """Felts (batch, cols) -> (batch, cols * 8) u32 words: each felt as
     [lo, hi, 0, 0, 0, 0, 0, 0], the protocol's 32-byte little-endian

@@ -5,26 +5,30 @@ Replaces the TPU kernel `aero_tpu/hash/blake2s_pallas.py:36`
 plain PyTorch version (`blake2s.py`, re-exported here with a `_plain`
 suffix) for a CPU tensor and launches the kernel for a CUDA tensor; any
 other device raises, and so does a failed build or launch. `LAUNCHES`
-counts the kernel launches of each entry point.
+counts the kernel launches of each entry point. `merkle_gather`, in the
+same source, hashes nothing: it reads a batch opening's digests from every
+level of a tree in one launch.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import threading
 
 import torch
 
 from .. import _build
-from .._device import upload
-from ..utils import tracing
+from .._device import upload, wait_stream
 from .blake2s import (blake2s_words as blake2s_words_plain,
                       hash_columns_t as hash_columns_plain,
                       merge_level_t as merge_level_plain,
+                      merkle_gather_t as merkle_gather_plain,
                       grind_pow as grind_pow_plain)
 
 LAUNCHES = {"blake2s_words": 0, "blake2s_hash_columns": 0,
-            "blake2s_merge_level": 0, "blake2s_grind_pow": 0}
+            "blake2s_merge_level": 0, "blake2s_grind_pow": 0,
+            "merkle_gather": 0}
 
 
 def reset_launches() -> None:
@@ -84,6 +88,30 @@ def merge_level(d: torch.Tensor) -> torch.Tensor:
     _build.launch("blake2s_merge_level", d.data_ptr(), n, out.data_ptr(),
                   _stream(d))
     LAUNCHES["blake2s_merge_level"] += 1
+    return out
+
+
+def merkle_gather(levels, coords: torch.Tensor) -> torch.Tensor:
+    """The digests at flat-tree indexes `coords` (K,) int64 (root 1, leaves
+    [n, 2n)) of a tree's word-major levels (level l is (8, n >> l)) ->
+    (K, 8) int32, each row a digest's 32 bytes little-endian. For levels on
+    a card, one launch and no copy: `coords` lies in pinned host memory and
+    the kernel writes the result into pinned host memory, valid once the
+    stream has drained. Every index must lie in [1, 2n): the kernel does
+    not check them. Up to 64 levels."""
+    if levels[0].device.type == "cpu":
+        return merkle_gather_plain(levels, coords)
+    _on_cuda(levels[0], 2, "merkle_gather")
+    if not coords.is_pinned() or coords.dtype != torch.int64 \
+            or coords.dim() != 1:
+        raise ValueError("merkle_gather: needs the indexes as a 1-d int64 "
+                         "tensor in pinned host memory")
+    out = torch.empty((coords.shape[0], 8), dtype=torch.int32,
+                      pin_memory=True)
+    table = (ctypes.c_int64 * len(levels))(*(l.data_ptr() for l in levels))
+    _build.launch("merkle_gather", table, len(levels), coords.data_ptr(),
+                  coords.shape[0], out.data_ptr(), _stream(levels[0]))
+    LAUNCHES["merkle_gather"] += 1
     return out
 
 
@@ -170,8 +198,7 @@ def grind_batch(seed: bytes, grinding_bits: int, device: torch.device,
     lock, so threads and streams of one process cannot mix their results."""
     with _GRIND_LOCK:
         host = grind_launch(seed, grinding_bits, device, base, count)
-        torch.cuda.current_stream(device).synchronize()
-        tracing.count("syncs")
+        wait_stream(device)
         return int(host[0]) & NOT_FOUND
 
 

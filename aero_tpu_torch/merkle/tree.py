@@ -7,9 +7,11 @@ downloaded the levels to the host; here `ResidentMerkleTree` serves every
 commit, with `prove` and `prove_batch` both. Leaves are the hash_elements
 digests of the rows of column-major felts (w, m); every level is an
 (8, size) int64 tensor of u32 digest words. A batch opening gathers only the
-digests the proof ships (`spec.merkle.batch_proof_coords`), one device gather
-per level, under the tracing span `merkle_open`: on a card each level's
-upload of offsets and read of digests wait for the stream (two `syncs`).
+digests the proof ships (`spec.merkle.batch_proof_coords`) in one gather
+over all the levels (`hash.blake2s_cuda.merkle_gather`), under the tracing
+span `merkle_open`: on a card the kernel reads the indexes from pinned host
+memory and writes the digests' bytes back into it, so an opening is one
+launch and one wait for the stream (one `syncs`), with no copy.
 
 The TPU package chunked the leaf axis to bound an 8x word message in HBM
 and finished the levels below 2^15 on the host to dodge relay module
@@ -19,20 +21,16 @@ through kernel 2 for CUDA tensors (`hash.blake2s_cuda`).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import List
 
-import numpy as np
 import torch
 
-from .._device import index_tensor, to_host
+from .._device import to_host, wait_stream
 from ..spec.merkle import BatchMerkleProof, batch_proof_coords
 from ..utils import span
 
-from ..hash.blake2s_cuda import hash_columns, merge_level
-
-
-def _digest_bytes(words: np.ndarray) -> bytes:
-    return words.astype("<u4").tobytes()
+from ..hash.blake2s import digests_to_bytes
+from ..hash.blake2s_cuda import hash_columns, merge_level, merkle_gather
 
 
 class ResidentMerkleTree:
@@ -42,7 +40,7 @@ class ResidentMerkleTree:
     def __init__(self, levels: List[torch.Tensor]):
         self.levels = levels
         self.n = int(levels[0].shape[1])
-        self._root = _digest_bytes(to_host(levels[-1][:, 0]).numpy())
+        self._root = digests_to_bytes(to_host(levels[-1]).t())[0]
 
     @property
     def root(self) -> bytes:
@@ -52,20 +50,21 @@ class ResidentMerkleTree:
     def depth(self) -> int:
         return self.n.bit_length() - 1
 
-    def _fetch(self, flat_coords: List[int]) -> Dict[int, bytes]:
-        """flat-tree indices (root 1, leaves [n, 2n)) -> digest bytes."""
-        by_level: Dict[int, List[int]] = {}
-        for c in flat_coords:
-            by_level.setdefault(c.bit_length() - 1, []).append(c)
-        out = {}
-        for log_size, coords in by_level.items():
-            lvl = self.levels[self.depth - log_size]
-            offs = index_tensor([c - (1 << log_size) for c in coords],
-                                lvl.device)
-            got = to_host(lvl[:, offs]).numpy()
-            for j, c in enumerate(coords):
-                out[c] = _digest_bytes(got[:, j])
-        return out
+    def _fetch(self, flat_coords: List[int]) -> List[bytes]:
+        """Flat-tree indices (root 1, leaves [n, 2n)) -> their digests, in
+        order: one gather over every level and, on a card, one wait."""
+        if not flat_coords:
+            return []
+        if min(flat_coords) < 1 or max(flat_coords) >= 2 * self.n:
+            raise IndexError(f"flat-tree index outside 1 .. {2 * self.n - 1}")
+        dev = self.levels[0].device
+        coords = torch.tensor(flat_coords, dtype=torch.int64,
+                              pin_memory=dev.type == "cuda")
+        words = merkle_gather(self.levels, coords)
+        if dev.type == "cuda":
+            wait_stream(dev)       # `coords` and `words` held until it returns
+        raw = words.numpy().tobytes()
+        return [raw[i:i + 32] for i in range(0, len(raw), 32)]
 
     def prove(self, index: int) -> List[bytes]:
         """The opening of one leaf: its digest, then the sibling at each
@@ -75,22 +74,25 @@ class ResidentMerkleTree:
         while i > 1:
             coords.append(i ^ 1)
             i >>= 1
-        got = self._fetch(coords)
-        return [got[c] for c in coords]
+        return self._fetch(coords)
 
     def prove_batch(self, indexes) -> BatchMerkleProof:
         with span("merkle_open"):
             leaf_coords, node_coords = batch_proof_coords(self.n, self.depth,
                                                           indexes)
-            got = self._fetch(list(leaf_coords)
+            got = self._fetch(leaf_coords
                               + [c for lst in node_coords for c in lst])
-            return BatchMerkleProof(
-                leaves=[got[c] for c in leaf_coords],
-                nodes=[[got[c] for c in lst] for lst in node_coords],
-                depth=self.depth)
+            nodes, k = [], len(leaf_coords)
+            for lst in node_coords:
+                nodes.append(got[k:k + len(lst)])
+                k += len(lst)
+            return BatchMerkleProof(leaves=got[:len(leaf_coords)],
+                                    nodes=nodes, depth=self.depth)
 
     def to(self, device) -> "ResidentMerkleTree":
-        """Move the levels (checkpointing: ProverState.to_host/to_device)."""
+        """Move the levels (checkpointing: ProverState.to_host/to_device).
+        The gather takes the level pointers afresh at every call, so nothing
+        else needs rebuilding."""
         self.levels = [lvl.to(device) for lvl in self.levels]
         return self
 

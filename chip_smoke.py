@@ -703,6 +703,44 @@ def phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz) -> None:
            err, ms, pms, (8 * n + 8 * n // 2) * 8, n // 2,
            sass["compress_merge"], clock_hz)
 
+    # a batch opening of the 2^23-leaf tree over d at the proof's 27 queries
+    from aero_tpu_torch.merkle import commit_digests
+    from aero_tpu_torch.spec.merkle import batch_proof_coords
+    tree = commit_digests(d.t())
+    idxs = [int(i) for i in torch.randperm(n, generator=gen, device=dev)[:27]]
+    leaf_coords, node_coords = batch_proof_coords(n, LOG_LDE, idxs)
+    coords = leaf_coords + [c for lst in node_coords for c in lst]
+    K = len(coords)
+    pinned = torch.tensor(coords, dtype=torch.int64, pin_memory=True)
+
+    def gather():
+        return bc.merkle_gather(tree.levels, pinned)
+    k = gather()
+    torch.cuda.synchronize()
+    m32 = (1 << 32) - 1
+    err = max_abs_err(k.long() & m32, bc.merkle_gather_plain(
+        tree.levels, pinned.to(dev)).cpu().long() & m32)
+    check(err == 0, f"merkle_gather of {K} digests kernel == plain")
+    ballast = torch.zeros(1 << 27, dtype=torch.int64, device=dev)
+
+    def busy():                     # about 6 ms of device work
+        for _ in range(8):
+            ballast.add_(1)
+    ms = cuda_ms_queued(gather, 50, busy)
+    pms = cuda_ms_queued(lambda: bc.merkle_gather_plain(
+        tree.levels, pinned.to(dev, non_blocking=True)), 5, busy)
+    open_ms = host_ms(lambda: tree.prove_batch(idxs))
+    log(f"[phase 1] merkle_gather {K} digests of a 2^{LOG_LDE}-leaf tree (27"
+        f" queries), indexes and digests in pinned host memory: kernel "
+        f"{ms * 1e3:.2f} us (queued), plain {pms:.3f} ms (on the card), "
+        f"max_abs_err {err}; the whole batch opening {open_ms:.3f} ms on "
+        f"the host clock")
+    record(kernels, "merkle_gather", f"{K} digests of a 2^{LOG_LDE}-leaf "
+           f"tree, 27 queries", err, ms, pms, K * (8 + 64 + 32), [], None,
+           clock_hz)
+    kernels["merkle_gather"]["host_ms"] = open_ms
+    del tree, ballast
+
 
 def lde_entry(c, log_blowup: int, offset: int):
     """(launch, plain) of the LDE entry alone, the first pass of `lde(c,
@@ -1670,8 +1708,8 @@ FIELD_KERNELS = ("gl_elementwise", "gl_scan", "gl_batch_inv",
 # factors and the OOD evaluation ran op by op)
 PROOF_K6, PROOF_K7, PROOF_K1_MAX = 1, 2, 250
 PATH_KERNELS = ("gl_colntt", "gl_colntt_lde", "blake2s_hash_columns",
-                "blake2s_merge_level",
-                "blake2s_grind_pow") + FIELD_KERNELS
+                "blake2s_merge_level", "blake2s_grind_pow",
+                "merkle_gather") + FIELD_KERNELS
 COUNTED_KERNELS = PATH_KERNELS + ("gl_constraint_merge",)
 
 
@@ -2703,6 +2741,9 @@ def main(argv=None) -> int:
                                     replaces=B2S_TPU),
         "blake2s_grind_pow": dict(route="cuda", source=B2S_SRC,
                                   replaces=B2S_TPU),
+        "merkle_gather": dict(route="cuda", source=B2S_SRC,
+                              replaces="none: aero_tpu's ResidentMerkleTree "
+                              "gathers a level at a time (merkle/tree.py)"),
         "miden_frag_eval": dict(route="cuda", source=K5_SRC,
                                 replaces=K5_REPLACES[0],
                                 note=K5_REPLACES[1], **k5_res),

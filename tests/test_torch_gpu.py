@@ -385,6 +385,71 @@ def test_the_syncs_counter_equals_the_profilers_synchronizing_calls(
     assert profiled_syncs(prof, "prove_program") == counted
 
 
+def _merkle_opens(records):
+    """The `syncs` counted in each `merkle_open` span, in order."""
+    from aero_tpu_torch.utils import subtree_count
+    return [subtree_count(records, r, "syncs") for r in
+            sorted(records, key=lambda r: r.index) if r.name == "merkle_open"]
+
+
+@pytest.mark.parametrize("n", [2, 8, 256, 1 << 17])
+def test_openings_on_the_card_equal_the_spec_tree(cuda_device, n):
+    """A CUDA tree opens in one `merkle_gather` launch and one wait, with
+    the spec host tree's bytes (`prove_batch`'s leaves and serialized
+    nodes, `prove`), and again after a `to("cpu")` / `to("cuda")` round
+    trip of its levels."""
+    from aero_tpu_torch.merkle import commit_digests
+    from aero_tpu_torch.spec.merkle import MerkleTree
+    from aero_tpu_torch.utils import get_tracer
+    rng = np.random.default_rng(n)
+    words = rng.integers(0, 1 << 32, size=(n, 8), dtype=np.int64)
+    spec = MerkleTree([w.astype("<u4").tobytes() for w in words])
+    tree = commit_digests(torch.from_numpy(words).to(cuda_device))
+    assert tree.root == spec.root
+    half = (n // 2) & ~1
+    sets = [[n // 3], [half, half + 1], [(n // 4) * 2 + 1], [n - 1]]
+    if n == 8:
+        sets.append(list(range(8)))
+    if n >= 27:
+        sets.append([int(i) for i in rng.choice(n, size=27, replace=False)])
+    tracer = get_tracer()
+    for device in (cuda_device, "cpu", cuda_device):
+        tree.to(device)
+        assert all(lvl.device.type == torch.device(device).type
+                   for lvl in tree.levels)
+        for idxs in sets:
+            tracer.reset()
+            TK.reset_launches()
+            got, want = tree.prove_batch(idxs), spec.prove_batch(idxs)
+            on_card = torch.device(device).type == "cuda"
+            assert TK.LAUNCHES["merkle_gather"] == int(on_card)
+            assert _merkle_opens(tracer.records) == [int(on_card)]
+            assert got.leaves == want.leaves
+            assert got.serialize_nodes() == want.serialize_nodes()
+            for i in idxs:
+                assert tree.prove(i) == spec.prove(i)
+    tracer.reset()
+
+
+def test_a_proof_opens_each_tree_in_one_launch_and_one_wait(cuda_device):
+    """A 2^14-row proof: its six batch openings (the trace, aux and
+    constraint trees and three FRI layers) count one `syncs` each inside
+    `merkle_open` and one `merkle_gather` launch each."""
+    from aero_tpu_torch.utils import get_tracer
+    from bench_gpu import _prepare, long_fib_source
+    prep = _prepare(long_fib_source(((1 << 14) - 64) // 12), [0, 1],
+                    1 << 14, 16, cuda_device)
+    prove(prep.air, prep.trace, prep.pub)           # warm
+    tracer = get_tracer()
+    tracer.reset()
+    TK.reset_launches()
+    prove(prep.air, prep.trace, prep.pub)
+    opens = _merkle_opens(tracer.records)
+    tracer.reset()
+    assert opens == [1] * 6
+    assert TK.LAUNCHES["merkle_gather"] == 6
+
+
 @pytest.mark.parametrize("rows", [64, 1 << 14])
 @pytest.mark.parametrize("world,exchange", [(1, "device"), (2, "host"),
                                             (4, "host")])

@@ -92,3 +92,56 @@ def test_prove_opens_to_the_root():
             node = merge(sib, node) if i & 1 else merge(node, sib)
             i >>= 1
         assert node == tree.root
+
+
+def _index_sets(n):
+    """The index sets a batch opening of an n-leaf tree is held on."""
+    sets = {"one_leaf": [n // 3],
+            "two_siblings": [(n // 2) & ~1, ((n // 2) & ~1) + 1],
+            "right_child_alone": [(n // 4) * 2 + 1],
+            "last_leaf": [n - 1]}
+    if n == 8:
+        sets["every_leaf"] = list(range(8))
+    if n >= 27:
+        sets["random_27_unsorted"] = [int(i) for i in np.random.default_rng(
+            n).choice(n, size=27, replace=False)]
+    return sets
+
+
+_TREES = {}
+
+
+def _trees(n):
+    """The port's tree on the CPU and the spec's host tree over the same n
+    random leaf digests."""
+    if n not in _TREES:
+        from aero_tpu_torch.merkle import commit_digests
+        words = np.random.default_rng(n).integers(0, 1 << 32, size=(n, 8),
+                                                 dtype=np.int64)
+        spec = MerkleTree([w.astype("<u4").tobytes() for w in words])
+        _TREES[n] = (commit_digests(torch.from_numpy(words)), spec)
+    return _TREES[n]
+
+
+@pytest.mark.parametrize("n,name,indexes", [
+    (n, name, idxs) for n in (2, 4, 8, 256, 1 << 17)
+    for name, idxs in _index_sets(n).items()])
+def test_openings_equal_the_spec_tree_byte_for_byte(n, name, indexes):
+    """One gather over all of a tree's levels: `prove_batch`'s leaves and
+    serialized nodes, and `prove` of each index, equal the spec's."""
+    tree, spec = _trees(n)
+    assert tree.root == spec.root
+    got, want = tree.prove_batch(indexes), spec.prove_batch(indexes)
+    assert got.leaves == want.leaves
+    assert got.serialize_nodes() == want.serialize_nodes()
+    assert got.depth == want.depth
+    for i in indexes:
+        assert tree.prove(i) == spec.prove(i)
+
+
+def test_an_opening_outside_the_tree_raises():
+    tree, _ = _trees(8)
+    with pytest.raises(IndexError):
+        tree.prove(8)
+    with pytest.raises(IndexError):
+        tree.prove_batch([3, 8])
