@@ -102,6 +102,9 @@ class Request:
     error: Optional[str] = None
     spans: Dict[str, float] = field(default_factory=dict)   # name -> seconds
     host_spans: list = field(default_factory=list)          # (name, start, end)
+    # the program's counters summed over every `prove_program` subtree;
+    # None where the request left no such span or filled the tracer's ring
+    counters: Optional[Dict[str, int]] = None
 
     @property
     def latency(self) -> float:
@@ -139,9 +142,28 @@ class Run:
         return sum(vals) / len(vals) if vals else None
 
 
+PROOF_SPAN = "prove_program"
+
+
+def proof_counters(records) -> Optional[Dict[str, int]]:
+    """Each counter of the program's span records summed over the
+    subtree of every `prove_program` record: the record and every record
+    opened inside it, at any depth (a record's `parent` is the `index` of
+    the span it opened in). None where no record is `prove_program`."""
+    inside: set = set()
+    out: Dict[str, int] = {}
+    # a span opens before the spans inside it: walk in the order of opening
+    for rec in sorted(records, key=lambda r: r.index):
+        if rec.name == PROOF_SPAN or rec.parent in inside:
+            inside.add(rec.index)
+            for name, n in rec.counters.items():
+                out[name] = out.get(name, 0) + n
+    return out if inside else None
+
+
 def run_request(entry, k: int) -> Request:
-    """One request of the closed loop, with the program's spans of that
-    request alone."""
+    """One request of the closed loop, with the program's spans and
+    counters of that request alone, read after its end is taken."""
     from aero_tpu_torch.utils import get_tracer
     tracer = get_tracer()
     tracer.reset()
@@ -154,9 +176,13 @@ def run_request(entry, k: int) -> Request:
         answer, error = None, f"{type(e).__name__}: {e}"
     end = time.perf_counter()
     req = Request(k, start, end, answer, error)
-    for rec in tracer.records:
+    records = list(tracer.records)
+    for rec in records:
         req.spans[rec.name] = req.spans.get(rec.name, 0.0) + rec.duration_s
         req.host_spans.append((rec.name, rec.start, rec.start + rec.duration_s))
+    # a full ring may have dropped records of this request: no short count
+    if len(records) < tracer.records.maxlen:
+        req.counters = proof_counters(records)
     if answer is not None:
         req.host_spans.extend(answer.spans)
     tracer.reset()

@@ -1,8 +1,9 @@
 """Mean milliseconds a request of the window in the program's spans
 `merkle_open`, summed over the request: every batch opening of a Merkle
 tree (`ResidentMerkleTree.prove_batch`: the trace, aux and constraint
-trees and each FRI layer), each level's upload of offsets and read of
-digests waiting for the stream."""
+trees and each FRI layer), each one `merkle_gather` launch over all the
+tree's levels and one wait for the stream, which leaves the digests in
+host memory."""
 
 LAYER, UNIT, BETTER, SOURCE = "hash", "ms", "lower", "program_span"
 MOVES = "rows_per_s"

@@ -8,7 +8,7 @@ from port_bench import roofline
 
 LAYER, UNIT, BETTER, SOURCE = "ntt", "%", "higher", "device_trace"
 MOVES = "rows_per_s"
-WORKLOADS = ["miden-fib-2e20.prove"]
+WORKLOADS = ["miden-fib-2e20.prove", "miden-fib-2e18.prove"]
 
 
 def read(run):

@@ -12,6 +12,7 @@ on the card, at the cell's own size.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import os
@@ -30,7 +31,8 @@ from port_bench import harness, judge, roofline  # noqa: E402
 from port_bench.reference import miden, miden_air, verifier  # noqa: E402
 from port_bench.reference.proof import StarkProof  # noqa: E402
 
-CELLS = ["miden-fib-2e20.prove", "miden-fib-2e14.sdk", "miden-fib-2e14.prove"]
+CELLS = ["miden-fib-2e20.prove", "miden-fib-2e14.sdk", "miden-fib-2e14.prove",
+         "miden-fib-2e18.prove"]
 
 
 def _bench() -> dict:
@@ -88,31 +90,31 @@ def test_a_cell_names_its_files(cell):
 
 
 def test_a_new_cell_and_metric_are_files_only(tmp_path, monkeypatch):
-    """A cell at 2^18 rows and a per-layer metric, added as new files in
+    """A cell at 2^16 rows and a per-layer metric, added as new files in
     a copy of the folder, are found by name; no file already there
     changes."""
     for d in ("configs", "workloads", "metrics", "end_to_end"):
         shutil.copytree(HERE / d, tmp_path / d)
     before = _digest(tmp_path)
     cfg = harness.load("configs", "miden-fib-2e14")
-    cfg.update(name="miden-fib-2e18", rows=1 << 18,
-               program={"name": "long_fib", "n_iters": 21840})
-    (tmp_path / "configs" / "miden-fib-2e18.json").write_text(json.dumps(cfg))
+    cfg.update(name="miden-fib-2e16", rows=1 << 16,
+               program={"name": "long_fib", "n_iters": 5456})
+    (tmp_path / "configs" / "miden-fib-2e16.json").write_text(json.dumps(cfg))
     cell = harness.load("workloads", "miden-fib-2e14.prove")
-    cell.update(name="miden-fib-2e18.prove", config="miden-fib-2e18")
-    (tmp_path / "workloads" / "miden-fib-2e18.prove.json").write_text(
+    cell.update(name="miden-fib-2e16.prove", config="miden-fib-2e16")
+    (tmp_path / "workloads" / "miden-fib-2e16.prove.json").write_text(
         json.dumps(cell))
     (tmp_path / "metrics" / "prover.fri_pow_ms.py").write_text(
         'LAYER, UNIT, BETTER, SOURCE = "prover", "ms", "lower", '
         '"program_span"\nMOVES = "rows_per_s"\n'
-        'WORKLOADS = ["miden-fib-2e18.prove"]\n\n\ndef read(run):\n'
+        'WORKLOADS = ["miden-fib-2e16.prove"]\n\n\ndef read(run):\n'
         '    v = run.span_mean("fri_pow")\n'
         '    return None if v is None else v * 1e3\n')
     monkeypatch.setattr(harness, "ROOT", tmp_path)
-    assert harness.load("workloads", "miden-fib-2e18.prove")["config"] == \
-        "miden-fib-2e18"
-    assert harness.load("configs", "miden-fib-2e18")["rows"] == 1 << 18
-    mods = harness.metrics_for("metrics", "miden-fib-2e18.prove")
+    assert harness.load("workloads", "miden-fib-2e16.prove")["config"] == \
+        "miden-fib-2e16"
+    assert harness.load("configs", "miden-fib-2e16")["rows"] == 1 << 16
+    mods = harness.metrics_for("metrics", "miden-fib-2e16.prove")
     assert "prover.fri_pow_ms" in mods and "device.idle_pct" in mods
     assert "prover.fri_pow_ms" not in harness.metrics_for(
         "metrics", "miden-fib-2e14.prove")
@@ -143,6 +145,76 @@ def test_rate_and_tail_take_every_request_with_the_stall():
     # below the 95th percentile's rank a stall does not set the tail
     run = _fake_run([0.1] * 96 + [2.0] * 4)
     assert mods["latency_p95_s"].read(run) == pytest.approx(0.1)
+
+
+class _Planted:
+    """An entry whose request counts `syncs` as the program's spans do:
+    inside `prove_program`'s subtree (2 + 3 + 1, and 4 in a second
+    proof), outside it (an upload before the proof, a protobuf after
+    it), and with no span open. `retries` more waits in the subtree
+    stand for a proof-of-work search past its first batch; `fill` more
+    spans fill the ring."""
+
+    def __init__(self, fill=0, proof=True, fail=False, retries=0):
+        self.fill, self.proof, self.fail = fill, proof, fail
+        self.retries = retries
+
+    def request(self, k):
+        from aero_tpu_torch.utils import count, span
+        from port_bench import entries
+        with span("request_outer"):
+            count("syncs", 100)
+            with span("prove_program" if self.proof else "other"):
+                count("syncs", 2)
+                with span("fri_pow"):
+                    count("syncs", 3 + self.retries)
+                    with span("merkle_open"):
+                        count("syncs", 1)
+            for _ in range(self.fill):
+                with span("filler"):
+                    pass
+            with span("to_pb"):
+                count("syncs", 7)
+        count("syncs", 1000)
+        if self.proof:
+            with span("prove_program"):
+                count("syncs", 4)
+        if self.fail:
+            raise RuntimeError("planted failure")
+        return entries.Answer(k, [0, 1], b"")
+
+
+def test_syncs_per_proof_reads_the_proofs_subtree():
+    """`prover.syncs_per_proof` sums `syncs` over every `prove_program`
+    subtree of a request, none outside it, takes the fewest over the
+    completed requests, and reads None where a request filled the
+    tracer's ring or ran no proof."""
+    from aero_tpu_torch.utils.tracing import MAX_RECORDS
+    read = harness.metric_modules("metrics")["prover.syncs_per_proof"].read
+    run = harness.Run(cell={}, config={}, seed=0)
+    run.window = [harness.run_request(_Planted(), k) for k in range(2)]
+    assert [r.counters for r in run.window] == [{"syncs": 10}] * 2
+    assert read(run) == 10
+    retry = harness.run_request(_Planted(retries=1), 6)
+    assert retry.counters == {"syncs": 11}
+    assert read(dataclasses.replace(run, window=[retry])) == 11
+    run.window.append(retry)
+    assert read(run) == 10
+    failed = harness.run_request(_Planted(fail=True), 2)
+    assert failed.error is not None
+    run.window.append(failed)
+    assert read(run) == 10
+    # six spans and the fillers: a ring one short of full keeps them all,
+    # a full one may have dropped some
+    near = harness.run_request(_Planted(fill=MAX_RECORDS - 7), 3)
+    assert near.counters == {"syncs": 10}
+    full = harness.run_request(_Planted(fill=MAX_RECORDS - 6), 4)
+    assert full.counters is None
+    assert read(dataclasses.replace(run, window=run.window + [full])) is None
+    bare = harness.run_request(_Planted(proof=False), 5)
+    assert bare.counters is None
+    assert read(dataclasses.replace(run, window=run.window + [bare])) is None
+    assert read(harness.Run(cell={}, config={}, seed=0)) is None
 
 
 def test_nearest_rank():
@@ -281,7 +353,8 @@ def test_the_guard_compares_whole_top_level_names(monkeypatch):
 
 # --------------------------------------------------- rehearsed runs
 
-@pytest.mark.parametrize("cell", ["miden-fib-2e14.prove", "miden-fib-2e14.sdk"])
+@pytest.mark.parametrize("cell", ["miden-fib-2e14.prove", "miden-fib-2e14.sdk",
+                                  "miden-fib-2e18.prove"])
 def test_rehearsal_is_correct_and_the_control_is_not(cell):
     """The same cell files on the CPU at 64 rows; the process exits 0,
     which it does only with no JAX module loaded, and the control (one
@@ -377,3 +450,86 @@ def test_control_fails_on_the_card(card, cell):
         line = json.loads(out.stdout.strip().splitlines()[-1])
         assert line["correct"] is False
         assert line["checks"]["rejected"]["value"] >= 1
+
+
+# the CUDA runtime calls by which the host waits for the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy")
+
+
+def _profiled_waits(prof, name=harness.PROOF_SPAN):
+    """For each range of span `name` in a finished profile, in order, the
+    synchronizing runtime calls the profiler recorded inside it."""
+    events = prof.events()
+    calls = [e.time_range for e in events if e.name in SYNC_CALLS]
+    ranges = sorted((e.time_range for e in events if e.name == name),
+                    key=lambda r: r.start)
+    return [sum(r.start <= c.start and c.end <= r.end for c in calls)
+            for r in ranges]
+
+
+def _card_entry(cell):
+    """The cell's entry, set up on the card as a run sets it up."""
+    import torch
+    from aero_tpu_torch import _build
+    from port_bench import entries
+    wl = harness.load("workloads", cell)
+    cfg = harness.load("configs", wl["config"])
+    _build.load()
+    entry = entries.ENTRIES[wl["entry"]](cfg, wl, 2 ** 31 + 301,
+                                         torch.device("cuda", 0))
+    entry.setup()
+    return entry
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", CELLS)
+def test_syncs_per_proof_equals_the_profilers_waits(card, cell):
+    """Request by request, the `syncs` that `prover.syncs_per_proof`
+    reads equal the synchronizing runtime calls the profiler records in
+    each `prove_program` range; the metric reads the fewest."""
+    from torch.profiler import ProfilerActivity, profile
+    entry = _card_entry(cell)
+    try:
+        plain = [harness.run_request(entry, k) for k in range(3)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced = [harness.run_request(entry, k) for k in range(3, 6)]
+    finally:
+        entry.close()
+    counts = [r.counters["syncs"] for r in plain + traced]
+    waits = _profiled_waits(prof)
+    print(f"{cell}: syncs {counts}, profiler {waits}")
+    assert min(counts) > 0 and waits == counts[3:]
+    run = harness.Run(cell={}, config={}, seed=0, window=plain)
+    read = harness.metric_modules("metrics")["prover.syncs_per_proof"].read
+    assert read(run) == min(counts[:3])
+
+
+@pytest.mark.gpu
+def test_the_2e18_proof_runs_two_fragments_and_a_remainder_of_64(card):
+    """At 2^18 rows the LDE domain of 2^21 points is two fragments of
+    the prover's 2^20: constraint evaluation in two K5 launches under one
+    `frag_eval` span with n_frags 2, DEEP in two K4 launches; FRI folds
+    five layers down to a remainder of 64."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from aero_tpu_torch.utils import get_tracer
+    entry = _card_entry("miden-fib-2e18.prove")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            get_tracer().reset()
+            answer = entry.request(0)
+            frags = [r.meta for r in get_tracer().records
+                     if r.name == "frag_eval"]
+    finally:
+        entry.close()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    k5 = sum("frag_merge_kernel" in n for n in names)
+    k4 = sum("deep_combine_kernel" in n for n in names)
+    fri = StarkProof.from_bytes(answer.proof).fri_proof
+    print(f"frag_eval {frags}, K5 {k5}, K4 {k4}, FRI layers "
+          f"{len(fri.layers)}, remainder {len(fri.remainder_felts())}")
+    assert frags == [{"n_frags": 2}] and (k5, k4) == (2, 2)
+    assert (len(fri.layers), len(fri.remainder_felts())) == (5, 64)
