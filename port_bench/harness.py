@@ -271,10 +271,18 @@ def run_cell(cell_name: str, seed: int, seconds: float, trace: bool,
 
 
 def rehearsal_config(cfg: dict) -> dict:
-    """The configuration at 64 rows, for a run on the CPU: the same
-    program, options and AIR on a trace the CPU proves in seconds."""
+    """The configuration at `n_iters` 3, for a run on the CPU: the same
+    program, options and AIR on a trace the CPU proves in seconds. Its
+    rows are the length of the trace the VM gives that program, at least
+    64 (the fib programs' 64; a program with chiplet rows or procedures
+    its own)."""
+    from aero_tpu_torch.vm import execute_full
+    from .entries import POOL, inputs
+    from .programs import program_source
     out = json.loads(json.dumps(cfg))
-    out["rows"] = 64
-    out["lde_domain"] = 64 * out["options"]["blowup_factor"]
     out["program"] = dict(out["program"], n_iters=3)
+    trace, _, _ = execute_full(program_source(out["program"]),
+                               inputs(0, POOL, 0), min_rows=64)
+    out["rows"] = trace.shape[1]
+    out["lde_domain"] = out["rows"] * out["options"]["blowup_factor"]
     return out

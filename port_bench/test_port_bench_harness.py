@@ -3,11 +3,15 @@
     python -m pytest port_bench/ -q            # the CPU tests (~2 min)
     python -m pytest --noconftest -m gpu port_bench/   # on the card
 
-The CPU tests rehearse whole cells at 64 rows (`run.py --rehearse`),
-break the timed path underneath a run and see `correct` come out false,
-hold the frozen roofline counts to the port's own and the reference to
-`aero_tpu`'s proof at 2^14 rows. The `gpu` tests run each cell's control
-on the card, at the cell's own size.
+The CPU tests rehearse whole cells at `n_iters` 3 (`run.py
+--rehearse`; 64 rows for the fib programs, a chiplet program's own
+trace length), break the timed path underneath a run and see `correct`
+come out false, hold the frozen roofline counts to the port's own, the
+reference to `aero_tpu`'s proof at 2^14 rows, the reference's reading of
+a program (ROM, hash, outputs, overflow table) to the port's VM on fib,
+chiplet and std::math::u64 programs and 240 seeded random ones, and the
+u64 procedures' outputs to Python's 64-bit integer arithmetic. The `gpu`
+tests run each cell's control on the card, at the cell's own size.
 """
 
 from __future__ import annotations
@@ -120,6 +124,98 @@ def test_a_new_cell_and_metric_are_files_only(tmp_path, monkeypatch):
         "metrics", "miden-fib-2e14.prove")
     after = _digest(tmp_path)
     assert {k: after[k] for k in before} == before
+
+
+@pytest.mark.parametrize("config", ["miden-fib-2e20", "miden-fib-2e14",
+                                    "miden-fib-2e18"])
+def test_todays_rehearsals_are_unchanged(config):
+    """The fib configurations rehearse as before a program's own trace
+    length set the rows: 64 rows, its LDE domain at 64 rows, `n_iters` 3,
+    every other key as it stands."""
+    cfg = harness.load("configs", config)
+    want = json.loads(json.dumps(cfg))
+    want["rows"] = 64
+    want["lde_domain"] = 64 * want["options"]["blowup_factor"]
+    want["program"] = dict(want["program"], n_iters=3)
+    got = harness.rehearsal_config(cfg)
+    assert json.dumps(got, sort_keys=True) == json.dumps(want, sort_keys=True)
+    assert (got["rows"], got["lde_domain"], got["program"]) == (
+        64, 512, {"name": "long_fib", "n_iters": 3})
+    assert cfg == harness.load("configs", config)
+
+
+def _write_json(path: Path, obj: dict) -> None:
+    path.write_text(json.dumps(obj, indent=1))
+
+
+@pytest.fixture
+def u64_cells(tmp_path, monkeypatch):
+    """Copies of the folders with a std::math::u64 program, a configuration
+    and an `sdk` and a `prove` cell on it, added as new files and found
+    by name; no file already there changes."""
+    from port_bench import programs
+    for d in ("configs", "workloads", "metrics", "end_to_end", "programs"):
+        shutil.copytree(HERE / d, tmp_path / d)
+    before = _digest(tmp_path)
+    (tmp_path / "programs" / "u64_loop.masm").write_text(U64_LOOP_CARRY)
+    cfg = harness.load("configs", "miden-fib-2e14")
+    cfg.update(name="miden-u64-2e16", rows=1 << 16, lde_domain=1 << 19,
+               program={"name": "u64_loop", "n_iters": 400})
+    _write_json(tmp_path / "configs" / "miden-u64-2e16.json", cfg)
+    for entry in ("sdk", "prove"):
+        cell = harness.load("workloads", f"miden-fib-2e14.{entry}")
+        cell.update(name=f"miden-u64-2e16.{entry}", config="miden-u64-2e16")
+        _write_json(tmp_path / "workloads" / f"miden-u64-2e16.{entry}.json",
+                    cell)
+    monkeypatch.setattr(harness, "ROOT", tmp_path)
+    monkeypatch.setattr(programs, "HERE", tmp_path / "programs")
+    after = _digest(tmp_path)
+    assert {k: after[k] for k in before} == before
+    return tmp_path
+
+
+def _plant_an_output_slot(monkeypatch):
+    """The VM's third output slot changed in the public inputs that the
+    program builds from it, where the SDK and the prove entry build them."""
+    from aero_tpu_torch.air import miden as port_miden
+    orig = port_miden.make_public_inputs
+
+    def planted(phash, ins, out, overflow=None):
+        out = list(out)
+        out[2] = (out[2] + 1) % miden.P
+        return orig(phash, ins, out, overflow=overflow)
+
+    monkeypatch.setattr(port_miden, "make_public_inputs", planted)
+
+
+@pytest.mark.parametrize("cell,case", [
+    ("miden-u64-2e16.sdk", "sound"), ("miden-u64-2e16.sdk", "control"),
+    ("miden-u64-2e16.sdk", "fault"), ("miden-u64-2e16.prove", "sound"),
+    ("miden-u64-2e16.prove", "control")])
+def test_a_chiplet_cell_is_files_only(u64_cells, monkeypatch, cell, case):
+    """The u64 cell rehearses at its own trace length (1024 rows at 3
+    iterations: its procedures and chiplet rows do not fit in 64) and is
+    correct through either entry; its control (one query fewer) and a
+    planted fault (one VM output slot changed in the SDK's public inputs)
+    are not."""
+    import torch
+    cfg = harness.rehearsal_config(harness.load("configs", "miden-u64-2e16"))
+    assert (cfg["rows"], cfg["lde_domain"], cfg["program"]) == (
+        1024, 8192, {"name": "u64_loop", "n_iters": 3})
+    if case == "fault":
+        _plant_an_output_slot(monkeypatch)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        run, checks = harness.run_cell(cell, 2 ** 31 + 17, 1.0, False, 0.0,
+                                       rehearse=True,
+                                       control=case == "control")
+    finally:
+        torch.set_num_threads(threads)
+    assert run.config["rows"] == 1024 and run.window
+    assert judge.correct(checks) is (case == "sound"), checks
+    if case != "sound":
+        assert checks["rejected"] + checks["failed"] > 0
 
 
 # --------------------------------------------------- the statistics
@@ -310,9 +406,297 @@ def test_reference_reads_the_program_as_the_vm_runs_it(n_iters):
     assert np.asarray(trace).shape[0] == miden_air.MidenAir.main_width
 
 
+# a std::math::u64 program as a later configuration would name it: a loop
+# over two field inputs split into u32 limbs, which calls four of the
+# stdlib's procedures and stores to and loads from memory each iteration
+U64_LOOP = """
+use.std::math::u64
+begin
+    u32split swap               # [a_hi, a_lo, b]
+    movup.2 u32split swap       # [b_hi, b_lo, a_hi, a_lo]
+    push.{n_iters}
+    dup.0 push.0 neq
+    while.true                  # [n, B, A]
+        movdn.4                 # [B, A, n]
+        dup.3 dup.3 dup.3 dup.3
+        exec.u64::wrapping_add  # [C = A + B, B, A, n]
+        mem.store.1 drop mem.store.0 drop
+        exec.u64::wrapping_mul  # [D = A * B, n]
+        mem.load.0 mem.load.1   # [C, D, n]
+        dup.3 dup.3 dup.3 dup.3
+        exec.u64::lt            # [D < C, C, D, n]
+        mem.load.2 add mem.store.2 drop
+        dup.3 dup.3 dup.3 dup.3
+        exec.u64::eq            # [D == C, C, D, n]
+        mem.load.3 add mem.store.3 drop
+        movup.4 push.1 sub      # [n - 1, C, D]
+        dup.0 push.0 neq
+    end
+    drop mem.load.3 mem.load.2  # [#lt, #eq, C, D]
+end
+"""
+
+# U64_LOOP with `lt` swapped for `overflowing_add`'s carry out of 64
+# bits: the port's `u64::lt` leaves b_hi under its answer (reference/
+# stdlib.py), so the comparisons with the port's VM and the chiplet cell
+# run this one; U64_LOOP itself is held to Python's integers
+U64_LOOP_CARRY = U64_LOOP.replace(
+    "exec.u64::lt            # [D < C, C, D, n]",
+    "exec.u64::overflowing_add movdn.2 drop drop  # [D + C > 2^64 - 1, C, D, n]")
+assert U64_LOOP_CARRY != U64_LOOP
+
+_A64, _B64 = 0xDEADBEEF_CAFEBABE, 0x01234567_89ABCDEF
+
+# the two chiplet programs of the port's VM tests, as they stand there
+CHIPLET_PROGRAMS = {
+    "u32_and_memory": ("""
+    begin
+        push.4294967295 push.1 u32add
+        push.12 push.10 u32xor add
+        mem.store.5 drop
+        push.99 mem.store.7 drop push.5 mem.load.7 add
+        mem.load.5 add
+        push.48 push.4 u32shr u32lt
+    end
+    """, [3, 4]),
+    "stdlib_import": ("""
+    use.std::math::u64
+    begin
+        exec.u64::wrapping_mul
+        exec.u64::eqz
+    end
+    """, [_B64 >> 32, _B64 & 0xFFFFFFFF, _A64 >> 32, _A64 & 0xFFFFFFFF]),
+}
+
+
+def _vm_reading(src, ins):
+    """ROM, program hash, output slots and overflow table by the port's
+    VM."""
+    from aero_tpu_torch.vm import execute_full, program_hash, rom_listing
+    _, out, ovf = execute_full(src, ins, min_rows=64, max_rows=1 << 16)
+    return rom_listing(src), program_hash(src), out, ovf
+
+
+def _reference_reading(src, ins):
+    out, table = miden.run(src, ins)
+    return (miden.rom_listing(src), miden.public_inputs(src, ins).program_hash,
+            out, table)
+
+
+@pytest.mark.parametrize("name", sorted(CHIPLET_PROGRAMS) + ["u64_loop"])
+def test_reference_reads_chiplet_programs_as_the_vm_runs_them(name):
+    """The u32 family, memory and std::math::u64: the reference's ROM,
+    program hash, output slots and overflow table equal the VM's."""
+    from port_bench.entries import inputs
+    if name == "u64_loop":
+        cases = [(U64_LOOP_CARRY.format(n_iters=n),
+                  inputs(2 ** 31 + 13, 0, k))
+                 for n, k in ((1, 0), (2, 1), (7, 2), (25, 3))]
+    else:
+        cases = [CHIPLET_PROGRAMS[name]]
+    for src, ins in cases:
+        got = _reference_reading(src, ins)
+        assert got == _vm_reading(src, ins)
+        assert len(got[3]) > 0 or name == "stdlib_import"
+
+
+# each std::math::u64 procedure's answer by Python's integers, top
+# first, held against both the reference and the VM: the procedures are
+# the repo's own text, the same on both sides, so only a known answer
+# catches a wrong carry, borrow or limb in them
+_M64 = (1 << 64) - 1
+
+
+def _limbs(x):
+    return [x >> 32, x & 0xFFFFFFFF]
+
+
+U64_ANSWERS = {
+    "wrapping_add": lambda a, b: _limbs((a + b) & _M64),
+    "overflowing_add": lambda a, b: [int(a + b > _M64)]
+    + _limbs((a + b) & _M64),
+    "wrapping_sub": lambda a, b: _limbs((a - b) & _M64),
+    "wrapping_mul": lambda a, b: _limbs((a * b) & _M64),
+    "eq": lambda a, b: [int(a == b)],
+    "lt": lambda a, b: [int(a < b)],
+    "gt": lambda a, b: [int(a > b)],
+    "lte": lambda a, b: [int(a <= b)],
+    "gte": lambda a, b: [int(a >= b)],
+    "eqz": lambda a, b: [int(a == 0)],
+}
+
+# edge limbs: 0, 2^32 - 1 in either limb, carries out of the low limb and
+# out of 64 bits, borrows across both, and two seeded values
+_EDGES = [0, 1, 0xFFFFFFFF, 1 << 32, (1 << 32) + 1, 0x1_FFFFFFFF, 1 << 63,
+          0xFFFFFFFF_00000000, _M64, _A64, _B64]
+
+
+def _answer_is(got, table, want, src, ins):
+    """16 output slots against a known answer: `want` on top, zeros under
+    it and in the overflow table (each value parked there was a zero
+    under the operands, whatever the count)."""
+    want = want + [0] * (16 - len(want))
+    assert (list(got), {v for _, v in table} - {0}) == (want, set()), (
+        src, ins)
+
+
+@pytest.mark.parametrize("proc", sorted(U64_ANSWERS))
+def test_u64_procedures_give_pythons_answers(proc):
+    """Each procedure of the reference's `std::math::u64` on every pair
+    of edge values gives what Python's 64-bit integer arithmetic gives:
+    a = the second pair on the stack, b = the top pair, a OP b."""
+    src = f"use.std::math::u64\nbegin\n    exec.u64::{proc}\nend\n"
+    for a in _EDGES:
+        for b in ([0] if proc == "eqz" else _EDGES):
+            ins = _limbs(a) if proc == "eqz" else _limbs(b) + _limbs(a)
+            _answer_is(*miden.run(src, ins), U64_ANSWERS[proc](a, b),
+                       src, ins)
+
+
+def _u64_loop_answer(a, b, n_iters, first):
+    """A u64 loop by Python's integers: (#first, #eq, C, D) after n_iters
+    rounds of C = A + B, D = A * B (mod 2^64), then A, B = D, C; `first`
+    is the count U64_LOOP's `lt` (or U64_LOOP_CARRY's carry) keeps."""
+    big, small = a, b
+    n_first = n_eq = 0
+    for _ in range(n_iters):
+        c, d = (big + small) & _M64, (big * small) & _M64
+        n_first, n_eq = n_first + first(d, c), n_eq + (d == c)
+        big, small = d, c
+    return n_first, n_eq, c, d
+
+
+_LOOP_EDGES = [[0, 0], [2, 2], [miden.P - 1, miden.P - 1], [0xFFFFFFFF, 1],
+               [1 << 32, 0xFFFFFFFF], [miden.P - 1, 1 << 63]]
+
+
+def _loop_case(loop, case, first):
+    """The loop at 7 iterations with C's limbs read back from memory at
+    the end, its inputs, and its answer by Python's integers."""
+    from port_bench.entries import inputs
+    ins = (_LOOP_EDGES[case] if case < len(_LOOP_EDGES)
+           else inputs(2 ** 31 + 29, 0, case))
+    head, _, _ = loop.format(n_iters=7).rpartition("end")
+    src = head + "    mem.load.0 mem.load.1\nend\n"
+    n_first, n_eq, c, d = _u64_loop_answer(ins[0], ins[1], 7, first)
+    if case == 0:
+        assert (n_first, n_eq) == (0, 7)
+    return src, ins, (_limbs(c) + [n_first, n_eq] + _limbs(c) + _limbs(d))
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_u64_loop_gives_pythons_answer(case):
+    """U64_LOOP read by the reference, with C's limbs read back from
+    memory at the end, gives the counts of D < C and D == C and the last
+    C and D that Python's integers give, in memory and on the stack."""
+    src, ins, want = _loop_case(U64_LOOP, case, lambda d, c: int(d < c))
+    _answer_is(*miden.run(src, ins), want, src, ins)
+
+
+@pytest.mark.parametrize("case", range(9))
+def test_the_cells_u64_loop_gives_pythons_answer_on_both_sides(case):
+    """U64_LOOP_CARRY, the chiplet cell's program, gives Python's counts
+    of carries out of D + C and of D == C and the last C and D, read by
+    the reference and run by the port's VM."""
+    from aero_tpu_torch.vm import execute_full
+    src, ins, want = _loop_case(U64_LOOP_CARRY, case,
+                                lambda d, c: int(d + c > _M64))
+    _answer_is(*miden.run(src, ins), want, src, ins)
+    _, out, table = execute_full(src, ins, min_rows=64, max_rows=1 << 16)
+    _answer_is(out, table, want, src, ins)
+
+
+def test_u32lo_and_u32hi_rows_list_no_immediate():
+    """A u32lo or u32hi row carries a witness in the trace's immediate
+    column, but the ROM lists 0 there, as the VM's listing does."""
+    from aero_tpu_torch.vm import rom_listing
+    src = "begin push.18446744069414584320 u32split u32lo u32hi end"
+    rom = miden.rom_listing(src)
+    assert rom == rom_listing(src)
+    ops = [miden_air.OPS[op] for _, op, _ in rom]
+    assert ops == ["push", "dup0", "u32hi", "swap", "u32lo", "u32lo",
+                   "u32hi", "halt"]
+    assert [imm for _, _, imm in rom][1:] == [0] * 7
+
+
+def _random_program(rng):
+    """A straight-line program over the reference's new tokens, and its
+    stack inputs, every value on the stack and in memory a u32 so that
+    every operand is in range."""
+    u32 = lambda: rng.choice([0, 1, 2, 31, 0xFFFFFFFF, rng.getrandbits(32)])
+    field = lambda: rng.choice([rng.randrange(miden.P), miden.P - 1,
+                                0xFFFFFFFF << 32, rng.getrandbits(32)])
+    addr = lambda: rng.choice([0, 1, 2, 3, 7, 0xFFFFFFFF, rng.getrandbits(32)])
+    binary = ("u32add", "u32sub", "u32mul", "u32and", "u32or", "u32xor",
+              "u32lt")
+    menu = [
+        lambda: [f"push.{u32()}"],
+        lambda: [f"push.{field()}", rng.choice(["u32split", "u32lo",
+                                                "u32hi"])],
+        lambda: [rng.choice(["u32split", "u32lo", "u32hi", "u32not"])],
+        lambda: [rng.choice(binary)],
+        lambda: [f"{rng.choice(binary)}.{u32()}"],
+        lambda: [f"{rng.choice(['u32div', 'u32mod'])}.{u32() or 3}"],
+        lambda: [f"push.{rng.randrange(1, 1 << 32)}",
+                 rng.choice(["u32div", "u32mod"])],
+        lambda: [f"{rng.choice(['u32shl', 'u32shr'])}.{rng.randrange(32)}"],
+        lambda: [f"push.{rng.randrange(32)}", rng.choice(["u32shl",
+                                                          "u32shr"])],
+        lambda: rng.choice([["eqz"], ["eqz", "not"],
+                            ["eqz", "swap", "eqz", "and"],
+                            ["eqz", "swap", "eqz", "or"]]),
+        lambda: [f"dup.{rng.randrange(8)}"],
+        lambda: [rng.choice(["swap", "drop", "movup.2", "movup.3", "movup.4",
+                             "movdn.2", "movdn.3", "movdn.4"])],
+        lambda: [f"mem.store.{addr()}"] + rng.choice([[], ["drop"]]),
+        lambda: [f"mem.load.{addr()}"],
+        lambda: [f"push.{addr()}", rng.choice(["mem.load", "mem.store"])],
+        lambda: [rng.choice(["mem.load", "mem.store"])],
+    ]
+    toks = []
+    for _ in range(rng.randrange(10, 60)):
+        toks += rng.choice(menu)()
+    ins = [u32() for _ in range(rng.randrange(17))]
+    return "begin\n    " + " ".join(toks) + "\nend\n", ins
+
+
+@pytest.mark.parametrize("batch", range(8))
+def test_reference_reads_random_programs_as_the_vm_runs_them(batch):
+    """30 seeded straight-line programs a batch, 240 in all."""
+    import random
+    rng = random.Random(2 ** 31 + 1000 + batch)
+    for _ in range(30):
+        src, ins = _random_program(rng)
+        assert _reference_reading(src, ins) == _vm_reading(src, ins), src
+
+
+@pytest.mark.parametrize("src", [
+    "begin push.4294967296 push.1 u32add end",
+    "begin push.1 push.4294967296 u32lt end",
+    "begin push.4294967296 u32not end",
+    "begin push.7 push.0 u32div end",
+    "begin push.7 u32mod.0 end",
+    "begin push.1 u32shl.32 end",
+    "begin push.1 push.40 u32shr end",
+    "begin push.2 not end",
+    "begin push.2 push.1 and end",
+    "begin push.4294967296 mem.load end",
+    "begin push.5 mem.store.4294967296 end",
+    "begin push.1 u32rotl end",
+    "begin dup.8 end",
+])
+def test_reference_raises_where_the_vm_raises(src):
+    from aero_tpu_torch.vm import VmError
+    with pytest.raises(VmError):
+        _vm_reading(src, [1, 2])
+    with pytest.raises(ValueError):
+        _reference_reading(src, [1, 2])
+
+
 def test_the_reference_loads_nothing_of_the_program():
-    """In a fresh process the reference verifies the known answer and
-    has loaded no module of the program, of JAX or of the JAX package."""
+    """In a fresh process the reference verifies the known answer, reads
+    a std::math::u64 program (its ROM, run and hash) and has loaded no
+    module of the program, of JAX or of the JAX package."""
     code = (
         "import sys, json; sys.path.insert(0, %r)\n"
         "from port_bench import judge, harness\n"
@@ -325,8 +709,14 @@ def test_the_reference_loads_nothing_of_the_program():
         "why = judge.judge_proof(StarkProof.from_bytes(d),\n"
         "    miden.public_inputs(src, [0, 1]), cfg, miden.rom_listing(src))\n"
         "assert why == '', why\n"
+        "u64 = %r.format(n_iters=3)\n"
+        "out, table = miden.run(u64, [2 ** 40 + 5, 2 ** 63 + 7])\n"
+        "assert len(miden.rom_listing(u64)) > 100 and table\n"
+        "assert len(miden.public_inputs(u64, [2 ** 40 + 5, 2 ** 63 + 7])\n"
+        "           .program_hash) == 4\n"
         "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n"
-        % (str(ROOT), str(HERE / "reference/known/miden_longfib_2e14.bin")))
+        % (str(ROOT), str(HERE / "reference/known/miden_longfib_2e14.bin"),
+           U64_LOOP))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
