@@ -78,8 +78,9 @@ SIGNATURES = {
     "gl_eval_multi": [_P, _I64, _I32] * 4 + [_P, _I32, _P, _P, _I64, _P],
     # csrc/air_<name>.cu, generated (air/codegen.py): FRAG_EVAL_PARAMS of
     # csrc/frag_eval.cuh
-    **{f"{name}_frag_eval": [_P, _I64] * 4 + [_P] * 6
-       + [_I64, _P, _I64, _P, _I32, _P, _I64, _I32, _P]
+    **{f"{name}_frag_eval": [_P, _I64] * 6 + [_I64] + [_P] * 6
+       + [_I64, _P, _P, _P, _I32, _I32, _I64, _I64, _P, _I32, _P, _I64,
+          _I32, _P]
        for name in FRAG_EVAL_AIRS},
     # csrc/aux_<name>.cu, generated: ROW_EVAL_PARAMS of csrc/frag_eval.cuh
     **{f"{name}_aux_factors": [_P, _I64, _P, _P, _I64, _P]

@@ -168,7 +168,7 @@ def emit_transitions(prog: Program, em: Emission, air_cls,
             f"  static constexpr int kRands = {prog.rands};\n\n"
             "  // constraint k's value goes to out.put<k, c>(), c the index"
             " of its\n"
-            f"  // degree in {{{degrees}}}, the row of its x^adj in the "
+            f"  // degree in {{{degrees}}}, the slot of its x^adj in the "
             "merge\n"
             "  template <class In, class Out>\n"
             "  static GL_FN void eval(const In& in, Out& out) {\n"

@@ -20,7 +20,7 @@ struct FibTransitions {
   static constexpr int kRands = 2;
 
   // constraint k's value goes to out.put<k, c>(), c the index of its
-  // degree in {1, 2}, the row of its x^adj in the merge
+  // degree in {1, 2}, the slot of its x^adj in the merge
   template <class In, class Out>
   static GL_FN void eval(const In& in, Out& out) {
     const u64 r0 = in.main_cur(0);

@@ -40,7 +40,7 @@ kernel's indexing does not cover), so a profile shows how often that fires.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -162,18 +162,12 @@ def elementwise(a: torch.Tensor, b: torch.Tensor, op: int) -> torch.Tensor:
     return out
 
 
-def power(a: torch.Tensor, e: int,
-          out: Optional[torch.Tensor] = None) -> torch.Tensor:
+def power(a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e mod p for a host exponent 0 <= e < 2^64 (a^0 is 1), square and
-    multiply in the kernel: one launch of K1, into `out` (contiguous, of
-    a's shape) when one is given."""
+    multiply in the kernel: one launch of K1."""
     if not 0 <= e < 1 << 64:
         raise ValueError(f"power: exponent {e} outside [0, 2^64)")
-    if out is None:
-        out = torch.empty(a.shape, dtype=torch.int64, device=a.device)
-    elif out.shape != a.shape or not out.is_contiguous():
-        raise ValueError(f"power: out must be contiguous of shape "
-                         f"{tuple(a.shape)}")
+    out = torch.empty(a.shape, dtype=torch.int64, device=a.device)
     if out.numel() == 0:
         return out
     keep: list = []
@@ -369,37 +363,84 @@ def _rows_in_place(t: Optional[torch.Tensor], m: int, what: str,
     return t.data_ptr(), t.stride(0)
 
 
-def frag_eval(name: str, frames, rands, cc_t, cc_b, bvals, zt, dinv, xp,
-              idx, n_constraints: int, transitions: bool = False
+class XPow(NamedTuple):
+    """What K5 makes a point's x^adj values from (`csrc/frag_eval.cuh`
+    `XPow`): x = offset w^i at domain position i, w of order `m_dom` (a
+    power of two), so x^adj = offset^adj w^k, k = adj i mod m_dom, and
+    w^k = lo[k mod len(lo)] hi[k // len(lo)]. Row r of `pw` (X, 2) holds
+    slot r's adj mod m_dom and offset^adj: the degree classes' slots first,
+    then the assertions'. `first` is the domain position of the fragment's
+    point 0."""
+    lo: torch.Tensor        # (2^h,) w^j
+    hi: torch.Tensor        # (m_dom >> h,) w^(j 2^h)
+    pw: torch.Tensor        # (X, 2)
+    m_dom: int
+    first: int
+
+
+def _next_frame(f, m: int, what: str, keep: list) -> tuple:
+    """(body pointer, body stride, tail pointer, tail stride, points in the
+    body) of a next-row frame: a (w, m) view, or a (body, tail) pair of
+    views whose points add up to m, each read where it lies."""
+    if not isinstance(f, tuple):
+        return (*_rows_in_place(f, m, what, keep), None, 0, m)
+    body, tail = f
+    nb = body.shape[-1]
+    if body.shape[0] != tail.shape[0] or nb + tail.shape[-1] != m:
+        raise ValueError(f"{what}: a frame's body {tuple(body.shape)} and "
+                         f"tail {tuple(tail.shape)} are not {m} points")
+    return (*_rows_in_place(body, nb, what, keep),
+            *_rows_in_place(tail, m - nb, what, keep), nb)
+
+
+def frag_eval(name: str, frames, rands, cc_t, cc_b, bvals, zt, dinv,
+              xpow: XPow, idx, n_constraints: int, transitions: bool = False
               ) -> torch.Tensor:
     """K5 for AIR `name` over one fragment of m points: `frames` the four
-    (w, m) views main at x, main at x g, aux at x, aux at x g (aux None
-    without an aux segment), read in place at their row stride; `rands`
-    (R,), `cc_t` (T, 2), `cc_b` (B, 2), `bvals` (B,), `zt` (m,), `dinv`
-    (D, m) and `xp` (X, m) rows, `idx` the int32 table of
-    `csrc/frag_eval.cuh` `MergeArgs`. Returns the merged row (m,), or with
-    `transitions` the T constraint values (T, m). One launch."""
+    views main at x, main at x g, aux at x, aux at x g (aux None without an
+    aux segment), (w, m) each, read in place at their row stride; a frame
+    at x g may instead be a (body, tail) pair, (w, nb) and (w, m - nb), the
+    two pieces where it runs past the end of the domain, each read where it
+    lies. `rands` (R,), `cc_t` (T, 2), `cc_b` (B, 2), `bvals` (B,), `zt`
+    (m,), `dinv` (D, m) rows, `xpow` the x^adj tables (`XPow`), `idx` the
+    int32 table of `csrc/frag_eval.cuh` `MergeArgs`. Returns the merged row
+    (m,), or with `transitions` the T constraint values (T, m). One
+    launch."""
     key = f"{name}_frag_eval"
     if key not in LAUNCHES:
         raise ValueError(f"frag_eval: no generated kernel {key}")
     m = zt.shape[-1]
-    present = [f for f in frames if f is not None]
-    on_cuda(zt, rands, cc_t, cc_b, bvals, dinv, xp, *present)
+    present = [t for f in frames if f is not None
+               for t in (f if isinstance(f, tuple) else (f,))]
+    on_cuda(zt, rands, cc_t, cc_b, bvals, dinv, xpow.lo, xpow.hi, xpow.pw,
+            *present)
     if idx.dtype != torch.int32 or idx.device != zt.device:
         raise ValueError("frag_eval: idx must be int32 on the card")
     B = bvals.shape[0]
     keep: list = []
-    rows = [x for f in frames for x in _rows_in_place(f, m, "frag_eval",
-                                                       keep)]
+    main_cur, main_nxt, aux_cur, aux_nxt = frames
+    mn = _next_frame(main_nxt, m, "frag_eval", keep)
+    an = ((None, 0, None, 0, mn[4]) if aux_nxt is None
+          else _next_frame(aux_nxt, m, "frag_eval", keep))
+    if mn[4] != an[4]:
+        raise ValueError("frag_eval: the main and aux frames at x g are cut "
+                         "at different points")
+    rows = [*_rows_in_place(main_cur, m, "frag_eval", keep), *mn[:2],
+            *_rows_in_place(aux_cur, m, "frag_eval", keep), *an[:2],
+            *mn[2:4], *an[2:4], mn[4]]
     dp, dld = _rows_in_place(dinv, m, "frag_eval", keep)
-    xpp, xld = _rows_in_place(xp, m, "frag_eval", keep)
+    n_lo = xpow.lo.shape[0]
     shape = (n_constraints, m) if transitions else (m,)
     out = torch.empty(shape, dtype=torch.int64, device=zt.device)
     _build.launch(key, *rows, _dense(rands, rands.numel(), "frag_eval"),
                   _dense(cc_t, 2 * n_constraints, "frag_eval"),
                   _dense(cc_b, 2 * B, "frag_eval"),
                   _dense(bvals, B, "frag_eval"), _row(zt, m, keep), dp, dld,
-                  xpp, xld, _dense(idx, idx.numel(), "frag_eval"), B,
+                  _dense(xpow.lo, n_lo, "frag_eval"),
+                  _dense(xpow.hi, xpow.m_dom // n_lo, "frag_eval"),
+                  _dense(xpow.pw, xpow.pw.numel(), "frag_eval"),
+                  xpow.pw.shape[0], n_lo.bit_length() - 1, xpow.m_dom,
+                  xpow.first, _dense(idx, idx.numel(), "frag_eval"), B,
                   out.data_ptr(), m, int(transitions), _stream(zt))
     LAUNCHES[key] += 1
     return out

@@ -46,7 +46,8 @@ from ..air.air import Air
 from ..field import from_u64, gf_sum, mul, power_series, scalar
 from ..hash.blake2s_cuda import hash_columns, merge_level
 from ..ntt.tables import np_power_series
-from ..prover.prover import FRAG, ConstraintMerger, _deep_core, ceval_domain
+from ..prover.prover import (FRAG, ConstraintMerger, Wrapped, _deep_core,
+                             ceval_domain)
 from ..spec import field as F
 from .dist_ntt import dist_lde, dist_lde_coeffs, dist_ntt
 from .mesh import Mesh, all_gather, all_to_all, send_to_rank
@@ -143,14 +144,16 @@ def _merged_block(mesh: Mesh, air: Air, main_lde: torch.Tensor,
     """The merged constraint evaluations (m / D,) of this rank's block, in
     fragments of FRAG points. A fragment's frames are slices of the LDE
     blocks, read where they lie; where the frame at x * g runs past the
-    block's end (the last fragment), it is built from the block's tail and
-    the next block's first `blowup` points (`next_points`)."""
+    block's end (the last fragment), it is the block's tail and the next
+    block's first `blowup` points (`next_points`) as a `Wrapped` pair of
+    views, which K5 reads in place."""
     blowup = air.options.blowup_factor
     m_blk = main_lde.shape[-1]
+    first = mesh.rank * m_blk
     merger = ConstraintMerger(
         air, aux_rand, cc_t, cc_b,
-        ceval_domain(air, main_lde.device, mesh.rank * m_blk, m_blk),
-        main_lde.device)
+        ceval_domain(air, main_lde.device, first, m_blk), main_lde.device,
+        first=first)
     halo_main = next_points(mesh, main_lde, blowup)
     halo_aux = None if aux_lde is None else next_points(mesh, aux_lde,
                                                         blowup)
@@ -168,7 +171,7 @@ def _merged_block(mesh: Mesh, air: Air, main_lde: torch.Tensor,
         elif lo >= m_blk:                   # a fragment shorter than blowup
             nxt = halo[:, lo - m_blk:hi - m_blk]
         else:
-            nxt = torch.cat([x[:, lo:], halo[:, :hi - m_blk]], dim=-1)
+            nxt = Wrapped(x[:, lo:], halo[:, :hi - m_blk])
         return x[:, a0:a0 + m_frag], nxt
 
     return torch.cat([

@@ -58,6 +58,7 @@ from ..field.gl import (add_plain, batch_inv_plain, gf_sum_plain, mul_plain,
 from ..hash.blake2s_cuda import grind_pow
 from ..merkle import ResidentMerkleTree, commit_columns
 from ..ntt import intt, lde
+from ..ntt.tables import np_power_series
 from .fri import FriLayer, commit_fri
 
 FRAG = 1 << 20      # domain points per constraint-eval / DEEP fragment
@@ -68,13 +69,36 @@ def _vec(ints, device) -> torch.Tensor:
                     device)
 
 
-def _frag(x: torch.Tensor, a: int, m_frag: int) -> torch.Tensor:
-    """x[..., a:a + m_frag], wrapping around the end of the domain."""
+class Wrapped(NamedTuple):
+    """A frame that runs past the end of the points it is cut from, as the
+    two views where its points lie: `body` up to that end, `tail` the
+    points after it (the domain's first points, or the next mesh block's
+    halo). K5 reads both in place; every other route joins them."""
+    body: torch.Tensor
+    tail: torch.Tensor
+
+
+def _frame(x: torch.Tensor, a: int, m_frag: int):
+    """x[..., a:a + m_frag], wrapping around the end of the domain: a view,
+    or where it wraps a `Wrapped` of two views."""
     m = x.shape[-1]
     a %= m
     if a + m_frag <= m:
         return x[..., a:a + m_frag]
-    return torch.cat([x[..., a:], x[..., :m_frag - (m - a)]], dim=-1)
+    return Wrapped(x[..., a:], x[..., :m_frag - (m - a)])
+
+
+def joined(frame):
+    """A frame as one tensor: a `Wrapped` one copied into one piece."""
+    if isinstance(frame, Wrapped):
+        return torch.cat(list(frame), dim=-1)
+    return frame
+
+
+def _frag(x: torch.Tensor, a: int, m_frag: int) -> torch.Tensor:
+    """x[..., a:a + m_frag], wrapping around the end of the domain, as one
+    tensor (a copy where it wraps)."""
+    return joined(_frame(x, a, m_frag))
 
 
 def ceval_domain(air: Air, device, first: int = 0,
@@ -113,6 +137,48 @@ def _ceval_static(air: Air, device) -> tuple:
     key = ("ceval_static", str(device))
     if key not in cache:
         cache[key] = ceval_domain(air, device)
+    return cache[key]
+
+
+def _xpow_static(air: Air, prog: symbolic.Program, device) -> tuple:
+    """What K5 makes its x^adj values from, cached per air and device:
+    (lo, hi, pw, adjs) of `gl_cuda.XPow`. `lo` and `hi` are the powers w^j
+    (j < 2^h) and w^(j 2^h) (j < m >> h) of the LDE generator w, with h
+    half of log2 of the domain's m points, rounded up: 2^12 + 2^11 words at
+    m = 2^23. `adjs` are the slots' exponents, one a degree class of the
+    AIR's traced program (its constraints' adjustment), then each
+    assertion adjustment that no class has; `pw` (X, 2) holds each one mod
+    m beside offset^adj. Made on the host; on the card one copy from pinned
+    memory, without a wait."""
+    cache = air.__dict__.setdefault("_prover_cache", {})
+    key = ("_xpow_static", str(device))
+    if key not in cache:
+        t_adjust = air.transition_adjustments()
+        cls_adj = [None] * len(prog.degrees)
+        for k, c in enumerate(prog.classes):
+            if cls_adj[c] is None:
+                cls_adj[c] = t_adjust[k]
+            elif cls_adj[c] != t_adjust[k]:
+                raise ValueError("frag_eval: constraints of one degree have "
+                                 "different adjustments")
+        adjs = cls_adj + [a for a in dict.fromkeys(air.boundary_adjustments())
+                          if a not in cls_adj]
+        m = air.trace_length * air.options.blowup_factor
+        h = m.bit_length() // 2            # ceil(log2(m) / 2)
+        w = air.lde_generator
+        words = np.concatenate([
+            np_power_series(w, 1 << h), np_power_series(F.exp(w, 1 << h),
+                                                        m >> h),
+            np.array([v for a in adjs
+                      for v in (a % m, F.exp(F.DOMAIN_OFFSET, a))],
+                     dtype=np.uint64)])
+        if torch.device(device).type == "cuda":
+            t = gl_cuda.device_vector(words.tolist(), device)
+        else:
+            t = from_u64(words, device)
+        n_lo, n_hi = 1 << h, m >> h
+        cache[key] = (t[:n_lo], t[n_lo:n_lo + n_hi],
+                      t[n_lo + n_hi:].reshape(len(adjs), 2), adjs)
     return cache[key]
 
 
@@ -171,8 +237,11 @@ class ConstraintMerger:
     and the merge (K3 on the card, its plain version on the CPU)."""
 
     def __init__(self, air: Air, aux_rand, cc_transition, cc_boundary,
-                 domain: tuple, device):
+                 domain: tuple, device, first: int = 0):
+        """`domain` is `ceval_domain(air, device, first, length)`: the range
+        starts at domain position `first`, which K5 reads from here."""
         self.air = air
+        self.first = first
         self.x_dom, self.zt_inv, self.denom_inv, points = domain
         g_trace = air.trace_generator
         assertions = air.get_assertions()
@@ -195,8 +264,8 @@ class ConstraintMerger:
         """The constraint evaluations and the rows the merge reads for the
         `m_frag` points from position a0 of the range; cur and nxt are
         (width, m_frag) frames."""
-        t_evals = self.air.evaluate_transitions(main_cur, main_nxt, aux_cur,
-                                                aux_nxt, self.rands)
+        t_evals = self.air.evaluate_transitions(
+            main_cur, joined(main_nxt), aux_cur, joined(aux_nxt), self.rands)
         return self._merge_rows(t_evals, main_cur, aux_cur, a0, pow_loop)
 
     def _merge_rows(self, t_evals, main_cur, aux_cur, a0: int,
@@ -219,30 +288,26 @@ class ConstraintMerger:
     def fragment(self, main_cur, main_nxt, aux_cur, aux_nxt,
                  a0: int) -> torch.Tensor:
         """The merged evaluations of the `m_frag` points from position a0
-        of the range; cur and nxt are (width, m_frag) frames. The route is
-        chosen by the device and the AIR's class."""
+        of the range; cur and nxt are (width, m_frag) frames, a nxt frame
+        that wraps possibly a `Wrapped`. The route is chosen by the device
+        and the AIR's class: K5 reads a `Wrapped` frame in place (counted
+        as `frames_in_place` on the innermost span), the others join it."""
         if gl_cuda.on_cuda(main_cur) and generated.kernel_for(self.air):
-            return gl_cuda.frag_eval(*self.k5_inputs(main_cur, main_nxt,
-                                                     aux_cur, aux_nxt, a0))
+            args = self.k5_inputs(main_cur, main_nxt, aux_cur, aux_nxt, a0)
+            if isinstance(main_nxt, Wrapped):
+                count("frames_in_place")
+            return gl_cuda.frag_eval(*args)
         return constraint_merge(*self.merge_inputs(main_cur, main_nxt,
                                                    aux_cur, aux_nxt, a0))
 
     def _k5_static(self, prog: symbolic.Program, device) -> tuple:
         """What K5 reads that no fragment changes: the rands on the card,
-        the distinct x^adj exponents (each degree class's, then the
-        assertions'), and the index table of `csrc/frag_eval.cuh`."""
+        the slots' x^adj exponents (`_xpow_static`), and the index table of
+        `csrc/frag_eval.cuh`."""
         if self._k5 is None:
-            cls_adj = [None] * len(prog.degrees)
-            for k, c in enumerate(prog.classes):
-                if cls_adj[c] is None:
-                    cls_adj[c] = self.t_adjust[k]
-                elif cls_adj[c] != self.t_adjust[k]:
-                    raise ValueError("frag_eval: constraints of one degree "
-                                     "have different adjustments")
-            adjs = list(dict.fromkeys(cls_adj + list(self.b_adjust)))
+            adjs = _xpow_static(self.air, prog, device)[3]
             w = self.air.main_width
-            idx = ([adjs.index(a) for a in cls_adj]
-                   + [adjs.index(a) for a in self.b_adjust]
+            idx = ([adjs.index(a) for a in self.b_adjust]
                    + [prow for _, _, prow in self.asrt_route]
                    + [c if is_main else w + c
                       for is_main, c, _ in self.asrt_route])
@@ -253,8 +318,9 @@ class ConstraintMerger:
     def k5_inputs(self, main_cur, main_nxt, aux_cur, aux_nxt,
                   a0: int) -> tuple:
         """The arguments of `gl_cuda.frag_eval` for one fragment on the
-        card: the frames as they lie, and one x^adj row a distinct
-        exponent (K1's pow). A generated file that the AIR no longer
+        card: the frames as they lie (a `Wrapped` one as its two views), and
+        the x^adj tables (`_xpow_static`) with the fragment's first domain
+        position, `first` + a0. A generated file that the AIR no longer
         traces to raises."""
         found = generated.kernel_for(self.air)
         if found is None:
@@ -263,21 +329,21 @@ class ConstraintMerger:
         name, prog = found
         frames = (main_cur, main_nxt, aux_cur, aux_nxt)
         widths = (prog.main_width,) * 2 + (prog.aux_width,) * 2
-        if ([0 if f is None else f.shape[0] for f in frames] != list(widths)
-                or len(self.rands) != prog.rands):
+        rows = [0 if f is None else (f.body if isinstance(f, Wrapped)
+                                     else f).shape[0] for f in frames]
+        if rows != list(widths) or len(self.rands) != prog.rands:
             raise ValueError(f"frag_eval: {name} reads frames of {widths} "
                              f"rows and {prog.rands} rands")
         m = main_cur.shape[-1]
         sl = slice(a0, a0 + m)
-        rands, adjs, idx = self._k5_static(prog, main_cur.device)
-        x_frag = self.x_dom[sl]
-        xp = torch.empty((len(adjs), m), dtype=torch.int64,
-                         device=main_cur.device)
-        for r, adj in enumerate(adjs):
-            gl_cuda.power(x_frag, adj, out=xp[r])
+        device = main_cur.device
+        rands, _, idx = self._k5_static(prog, device)
+        lo, hi, pw, _ = _xpow_static(self.air, prog, device)
+        m_dom = self.air.trace_length * self.air.options.blowup_factor
+        xpow = gl_cuda.XPow(lo, hi, pw, m_dom, self.first + a0)
         return (name, frames, rands, self.cc_t, self.cc_b, self.bvals,
-                self.zt_inv[sl],
-                self.denom_inv[:, sl], xp, idx, len(prog.outputs))
+                self.zt_inv[sl], self.denom_inv[:, sl], xpow, idx,
+                len(prog.outputs))
 
     def fragment_plain(self, main_cur, main_nxt, aux_cur, aux_nxt, a0: int,
                        transitions: bool = False) -> torch.Tensor:
@@ -286,8 +352,8 @@ class ConstraintMerger:
         AIR's traced program interpreted with the plain ops
         (`symbolic.interpret`), then `constraint_merge_plain`."""
         prog = symbolic.trace(type(self.air))
-        t_evals = symbolic.interpret(prog, main_cur, main_nxt, aux_cur,
-                                     aux_nxt, self.rands)
+        t_evals = symbolic.interpret(prog, main_cur, joined(main_nxt),
+                                     aux_cur, joined(aux_nxt), self.rands)
         if transitions:
             return torch.stack(t_evals)
         return constraint_merge_plain(*self._merge_rows(
@@ -414,11 +480,11 @@ def stage_constraint_eval(air: Air, st: ProverState) -> None:
     with span("frag_eval", n_frags=m // m_frag):
         for a0 in range(0, m, m_frag):
             parts.append(merger.fragment(
-                _frag(st.main_lde, a0, m_frag),
-                _frag(st.main_lde, a0 + blowup, m_frag),
-                _frag(st.aux_lde, a0, m_frag)
+                _frame(st.main_lde, a0, m_frag),
+                _frame(st.main_lde, a0 + blowup, m_frag),
+                _frame(st.aux_lde, a0, m_frag)
                 if st.aux_lde is not None else None,
-                _frag(st.aux_lde, a0 + blowup, m_frag)
+                _frame(st.aux_lde, a0 + blowup, m_frag)
                 if st.aux_lde is not None else None, a0))
         merged = torch.cat(parts)
 

@@ -25,7 +25,8 @@ each of which raises on a failed check (so the script exits non-zero):
      `csrc/air_miden.cu`; K6 from its bus factors, `csrc/aux_miden.cu`;
      K7 `csrc/eval_multi.cu`) vs their plain versions at the 2^20-row
      proof's shapes, each timed beside its bound; K3 and K5 on that proof's
-     fragment 0, K5 also against the eager path (K1 a field op, then K3),
+     fragment 0, K5 also on its last (the next-row frame read in place,
+     body and tail) and against the eager path (K1 a field op, then K3),
      with its registers, warps an SM and the words it reads (the set-up
      fails if K5's merge kernel spills); K6 on that proof's trace, also
      against `_bus_row_factors` op by op on the card; K7 on its 72 + 9 + 8
@@ -39,9 +40,11 @@ each of which raises on a failed check (so the script exits non-zero):
      program through `aero_tpu_torch.sdk.prove(min_rows=2^20)`: equal bytes
      all three, the SDK's must verify, and its launches are the ones the
      `kernels` line reports: one K6 launch, one K7 call (two launches), at
-     most 250 K1 launches, and no `torch.roll` of the trace, no `torch.cat`
-     of the coefficient rows and no zero-padded LDE input (`coset_pad`,
-     `torch.zeros` of rows of 2^23) on the card; prints stage times, wall
+     most 178 K1 launches, and no `torch.roll` of the trace, no `torch.cat`
+     of the coefficient rows or of a next-row frame (the last fragment's,
+     read in place: `frames_in_place` 1 on the `frag_eval` span) and no
+     zero-padded LDE input (`coset_pad`, `torch.zeros` of rows of 2^23) on
+     the card; prints stage times, wall
      clocks, peak memory and sha256, which must equal the committed
      `tests/golden/torch_port/miden_2e20_rows.json` (`--proof-out FILE`
      writes the proof with its public inputs first);
@@ -1204,10 +1207,12 @@ def field_k4(dev, gen, widths, log_m: int, log_ld: int, timer, sass,
 
 
 def scale_merger(dev):
-    """The merger of the 2^20-row proof (the program of phase 4) and the
-    frames of its fragment 0: the trace and aux commits, the constraint
-    coefficients as the transcript draws them; and the trace, the aux
-    rands and the main and aux coefficient rows."""
+    """The merger of the 2^20-row proof (the program of phase 4), the
+    frames of its fragment 0 and, with its offset, of its last fragment
+    (the next-row frame wrapping round the domain, a `Wrapped` pair of
+    views): the trace and aux commits, the constraint coefficients as the
+    transcript draws them; and the trace, the aux rands and the main and
+    aux coefficient rows."""
     from aero_tpu_torch.prover import prover as PR
     from aero_tpu_torch.spec import field as F
     prep = bench_gpu._prepare(long_fib_source(((1 << 20) - 64) // 12),
@@ -1224,10 +1229,13 @@ def scale_merger(dev):
     merger = PR.ConstraintMerger(air, st.aux_rand, cc_t, cc_b,
                                  PR._ceval_static(air, dev), dev)
     b = air.options.blowup_factor
-    frames = tuple(PR._frag(lde_, a, PR.FRAG)
+    frames = tuple(PR._frame(lde_, a, PR.FRAG)
                    for lde_ in (st.main_lde, st.aux_lde) for a in (0, b))
-    return merger, frames, (prep.trace, st.aux_rand, st.main_polys,
-                            st.aux_polys)
+    a_last = st.main_lde.shape[-1] - PR.FRAG
+    last = tuple(PR._frame(lde_, a_last + a, PR.FRAG)
+                 for lde_ in (st.main_lde, st.aux_lde) for a in (0, b))
+    return merger, frames, (last, a_last), (prep.trace, st.aux_rand,
+                                             st.main_polys, st.aux_polys)
 
 
 def kernel_resources(lib, pattern: str, threads: int, what: str) -> tuple:
@@ -1374,8 +1382,10 @@ def k5_terms(merger, sass) -> tuple:
     _, prog = generated.kernel_for(merger.air)
     em = symbolic.emission(prog)
     T, B = len(prog.outputs), len(merger.asrt_route)
+    X = len(merger._k5[1])          # x^adj slots: two multiplies each
     merge = Counter({op: per_t * T + per_b * B + once for op, (
         per_t, per_b, once) in K5_MERGE_OPS.items()})
+    merge["op_mul_vv"] += 2 * X
     ops = merge + program_ops(prog)
     stated = merge + Counter(
         probe_op(kind, any(isinstance(a, int) for a in args))
@@ -1386,34 +1396,36 @@ def k5_terms(merger, sass) -> tuple:
     cells = {n.args for n in prog.nodes if n.kind == LOAD}
     cells |= {("main_cur" if is_main else "aux_cur", c)
               for is_main, c, _ in merger.asrt_route}
-    rows = (len(cells) + 1 + merger.denom_inv.shape[0]
-            + len(merger._k5[1]) + 1)
-    # the merge's words: a constraint's c0, c1 and x^adj (MergeOut::put
-    # reads them where the value arrives), zt, and an assertion's two
-    # coefficients, value, x^adj, divisor and column
+    rows = len(cells) + 1 + merger.denom_inv.shape[0] + 1
+    # the merge's words: a constraint's c0 and c1 (MergeOut::put reads them
+    # where the value arrives; its x^adj comes from the point's slot in
+    # shared memory), zt, an assertion's two coefficients, value, divisor
+    # and column, and a slot's exponent, offset^adj and two table words
     reads = dict(frame=em.frame_reads, rand=em.rand_reads,
-                 merge=3 * T + 1 + 6 * B, cells=len(cells))
+                 merge=2 * T + 1 + 5 * B + 4 * X, cells=len(cells))
     return rows, need, emitted, run, dict(ops), reads
 
 
 def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
-             what=""):
+             what="", wrapped=None):
     """K5 on one fragment against the eager path (the AIR's own
     evaluate_transitions, one K1 launch a field op, and K3) and against
     its plain version (the traced program in the plain ops and
     constraint_merge_plain), merged rows and transition values; then,
-    with `kernels`, timed beside its bound."""
+    with `kernels`, timed beside its bound, and on `wrapped` (frames, a0),
+    the last fragment, its next-row frame read in place, against its plain
+    version and timed."""
     from aero_tpu_torch.field import gl_cuda
     from aero_tpu_torch.prover import prover as PR
     gl_cuda.reset_launches()
     got = merger.fragment(*frames, a0)
     launched = dict(gl_cuda.LAUNCHES)
     k5_args = merger.k5_inputs(*frames, a0)
-    pows = len(k5_args[8])
+    slots = k5_args[8].pw.shape[0]
     check(launched["miden_frag_eval"] == 1
-          and launched["gl_elementwise"] == pows
-          and sum(launched.values()) == 1 + pows,
-          f"K5 {what}: one launch, beside one pow a distinct x^adj")
+          and sum(launched.values()) == 1,
+          f"K5 {what}: one launch, its {slots} x^adj values made inside it "
+          "(no K1 launch)")
     inputs = merger.merge_inputs(*frames, a0)
     err = max_abs_err(got, PR.constraint_merge(*inputs))
     t_k5 = gl_cuda.frag_eval(*k5_args, transitions=True)
@@ -1434,11 +1446,27 @@ def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
     eager = host_ms(lambda: PR.constraint_merge(
         *merger.merge_inputs(*frames, a0)))
     pms = cuda_ms(lambda: merger.fragment_plain(*frames, a0), iters=1)
-    log(f"[phase 2b] K5 miden_frag_eval {what}: kernel {ms:.4f} ms; with "
-        f"its {pows} pow launches {whole:.4f} ms (one fragment through "
-        f"ConstraintMerger.fragment, host clock: {route_host:.3f} ms); "
-        f"eager K1 + K3 {eager:.3f} ms (host clock); plain {pms:.3f} ms; "
-        f"max_abs_err {err}")
+    log(f"[phase 2b] K5 miden_frag_eval {what}: kernel {ms:.4f} ms, its "
+        f"{slots} x^adj values made inside; through "
+        f"ConstraintMerger.fragment {whole:.4f} ms (host clock: "
+        f"{route_host:.3f} ms); eager K1 + K3 {eager:.3f} ms (host clock); "
+        f"plain {pms:.3f} ms; max_abs_err {err}")
+    last_ms = None
+    if wrapped is not None:
+        w_frames, w_a0 = wrapped
+        check(isinstance(w_frames[1], PR.Wrapped),
+              "the last fragment's next-row frame wraps: body and tail")
+        w_err = max_abs_err(merger.fragment(*w_frames, w_a0),
+                            merger.fragment_plain(*w_frames, w_a0))
+        check(w_err == 0, f"K5 on the last fragment, its next-row frame "
+              "read in place == plain")
+        w_args = merger.k5_inputs(*w_frames, w_a0)
+        last_ms = timer(lambda: gl_cuda.frag_eval(*w_args), iters=10)
+        log(f"[phase 2b] K5 miden_frag_eval on the last fragment (from "
+            f"{w_a0}, its next-row frame read in place, body "
+            f"{w_frames[1].body.shape[-1]} + tail "
+            f"{w_frames[1].tail.shape[-1]} points): kernel {last_ms:.4f} "
+            f"ms; max_abs_err {w_err}")
     rows, need, emitted, run, ops, reads = k5_terms(merger, sass)
     per_pipe = {pipe: tuple(sum(u * getattr(c, pipe) for u, c in terms)
                             for terms in (need, emitted, run))
@@ -1465,7 +1493,8 @@ def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
            err, ms, pms, rows * m * 8, [(m * u, c) for u, c in need],
            None, clock_hz)
     kernels["miden_frag_eval"].update(eager_k1_k3_ms=eager,
-                                      with_pow_ms=whole,
+                                      route_ms=whole,
+                                      last_fragment_ms=last_ms,
                                       words_read_per_point=words)
     return err
 
@@ -1584,7 +1613,7 @@ def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    merger, frames, (trace, rands, main_polys, aux_polys) = \
+    merger, frames, last, (trace, rands, main_polys, aux_polys) = \
         scale_merger(dev)
     inputs = merger.merge_inputs(*frames, 0)
     log(f"[phase 2b] the 2^20-row proof's fragment 0, through aux_commit "
@@ -1595,9 +1624,9 @@ def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
     del inputs
     torch.cuda.empty_cache()
     field_k5(merger, frames, 0, timer, sass, clock_hz, kernels,
-             "fragment 0 of the 2^20-row proof")
+             "fragment 0 of the 2^20-row proof", wrapped=last)
     air = merger.air
-    del merger, frames
+    del merger, frames, last
     torch.cuda.empty_cache()
     field_k6(air, trace, rands, timer, sass, clock_hz, kernels,
              "the 2^20-row proof's trace")
@@ -1636,13 +1665,16 @@ def watch_copies(trace_shape, coeff_shape):
     """Count, while the block runs, the calls of torch.roll on a card tensor
     of `trace_shape` and of torch.cat into one of `coeff_shape`: the copies
     K6 (the trace rolled by a row) and K7 (the trace's, aux and composition
-    coefficient rows concatenated) do without; and the zero-padded LDE
-    inputs that kernel 1's LDE entry does without: calls of `coset_pad`
-    and of torch.zeros for rows of the LDE domain, (rows, 2^23) on the
-    card."""
+    coefficient rows concatenated) do without; the next-row frames that K5
+    reads in place where they wrap (torch.cat of views of an LDE's rows
+    into (72 or 9, 2^20) on the card); and the zero-padded LDE inputs that
+    kernel 1's LDE entry does
+    without: calls of `coset_pad` and of torch.zeros for rows of the LDE
+    domain, (rows, 2^23) on the card."""
     import importlib
     ntt_mod = importlib.import_module("aero_tpu_torch.ntt.ntt")
-    seen = {"roll": 0, "cat": 0, "coset_pad": 0, "zeros_domain_rows": 0}
+    seen = {"roll": 0, "cat": 0, "frame_cat": 0, "coset_pad": 0,
+            "zeros_domain_rows": 0}
     roll, cat, zeros, pad = torch.roll, torch.cat, torch.zeros, \
         ntt_mod.coset_pad
 
@@ -1668,6 +1700,11 @@ def watch_copies(trace_shape, coeff_shape):
         out = cat(tensors, *args, **kwargs)
         if out.is_cuda and tuple(out.shape) == tuple(coeff_shape):
             seen["cat"] += 1
+        if (out.is_cuda and tuple(out.shape) in ((72, 1 << 20), (9, 1 << 20))
+                and all(t._base is not None
+                        and t._base.shape[-1] == 1 << LOG_LDE
+                        for t in tensors)):
+            seen["frame_cat"] += 1      # pieces of an LDE's rows joined
         return out
 
     torch.roll, torch.cat, torch.zeros = counted_roll, counted_cat, \
@@ -1705,8 +1742,9 @@ FIELD_KERNELS = ("gl_elementwise", "gl_scan", "gl_batch_inv",
                  "gl_eval_multi")
 # a proof's launches of K6 (one call) and K7 (one call of two launches),
 # and the most K1 launches a 2^20-row proof may make (853 while the bus
-# factors and the OOD evaluation ran op by op)
-PROOF_K6, PROOF_K7, PROOF_K1_MAX = 1, 2, 250
+# factors and the OOD evaluation ran op by op, 250 while K1 raised K5's
+# x^adj rows, 72 launches)
+PROOF_K6, PROOF_K7, PROOF_K1_MAX = 1, 2, 178
 PATH_KERNELS = ("gl_colntt", "gl_colntt_lde", "blake2s_hash_columns",
                 "blake2s_merge_level", "blake2s_grind_pow",
                 "merkle_gather") + FIELD_KERNELS
@@ -1779,17 +1817,26 @@ def phase_scale(dev, kernels, proof_out):
         f"times (at most {PROOF_K1_MAX}), K6 {counts['miden_aux_factors']} "
         f"(one call), K7 {counts['gl_eval_multi']} (one call of two "
         f"launches); calls on the card of torch.roll of the (72, 2^20) "
-        f"trace, of torch.cat into (89, 2^20) coefficient rows, of "
-        f"coset_pad and of torch.zeros for (rows, 2^23): {copies}")
+        f"trace, of torch.cat into (89, 2^20) coefficient rows or into "
+        f"(72 or 9, 2^20) next-row frames, of coset_pad and of torch.zeros "
+        f"for (rows, 2^23): {copies}")
     check(counts["miden_aux_factors"] == PROOF_K6
           and counts["gl_eval_multi"] == PROOF_K7
           and counts["gl_elementwise"] <= PROOF_K1_MAX,
           f"the 2^20-row proof makes one K6 launch, one K7 call and at most "
           f"{PROOF_K1_MAX} K1 launches")
-    check(copies == {"roll": 0, "cat": 0, "coset_pad": 0,
+    check(copies == {"roll": 0, "cat": 0, "frame_cat": 0, "coset_pad": 0,
                      "zeros_domain_rows": 0},
           "no roll of the trace, no concatenation of the coefficient rows "
-          "and no zero-padded LDE input on the card path")
+          "or of a next-row frame and no zero-padded LDE input on the card "
+          "path")
+    from aero_tpu_torch.utils import get_tracer
+    frag = [r for r in get_tracer().records if r.name == "frag_eval"][-1]
+    log(f"[phase 4] the 2^20-row proof's frag_eval span: {frag.meta}, "
+        f"counters {frag.counters}")
+    check(frag.counters.get("frames_in_place") == 1,
+          "K5 reads the one wrapping next-row frame of the proof in place "
+          "(frames_in_place 1)")
     check(res.native_proof.to_bytes() == data
           and res.native_pub.to_bytes() == r.prep.pub.to_bytes(),
           "sdk.prove's proof and public inputs == the bench's")
@@ -2186,7 +2233,7 @@ def dryrun_merger(dev, gen, log_m: int, log_ld: int, log_rows: int):
     and rands, and the frames of the block's last fragment of 2^log_m
     points as `parallel.sharded.stage_composition` hands them: cur a view
     of the block, nxt the block's tail followed by the next block's first
-    points (the halo)."""
+    points (the halo), read in place as a `Wrapped` pair."""
     from aero_tpu_torch.air.miden import MidenAir, make_public_inputs
     from aero_tpu_torch.prover import prover as PR
     from aero_tpu_torch.sdk import DEFAULT_OPTIONS
@@ -2204,14 +2251,14 @@ def dryrun_merger(dev, gen, log_m: int, log_ld: int, log_rows: int):
     m_blk, m_frag, b = 1 << log_ld, 1 << log_m, DEFAULT_OPTIONS.blowup_factor
     first = (8 << log_rows) - m_blk
     merger = PR.ConstraintMerger(air, air._aux_rand, cc_t, cc_b,
-                                 PR.ceval_domain(air, dev, first, m_blk), dev)
+                                 PR.ceval_domain(air, dev, first, m_blk), dev,
+                                 first=first)
     a0 = m_blk - m_frag
     frames = []
     for w in (72, 9):
         block = device_felts((w, m_blk), gen, dev)
         halo = device_felts((w, b), gen, dev)
-        frames += [block[:, a0:],
-                   torch.cat([block[:, a0 + b:], halo], dim=-1)]
+        frames += [block[:, a0:], PR.Wrapped(block[:, a0 + b:], halo)]
     return merger, tuple(frames), a0
 
 
@@ -2786,7 +2833,8 @@ def main(argv=None) -> int:
                                     "stack_bytes", "spill_instructions",
                                     "global_loads", "blocks_per_sm",
                                     "warps_per_sm", "words_read_per_point",
-                                    "with_pow_ms", "eager_k1_k3_ms",
+                                    "route_ms", "last_fragment_ms",
+                                    "eager_k1_k3_ms",
                                     "op_by_op_k1_ms")
             if key in k}}
         for name, k in kernels.items()]}))

@@ -290,24 +290,37 @@ static inline unsigned long long __umul64hi(unsigned long long a,
 template <class Air>
 static void run(const FrameIn& f, const MergeArgs& a, u64* out,
                 long long m, int mode) {
+  u64 slots[Air::kClasses + 1];
   for (long long e = 0; e < m; ++e) {
     FrameIn in = f;
     in.e = e;
-    if (mode == 0) out[e] = frag_merge_point<Air>(in, a);
+    if (mode == 0) out[e] = frag_merge_point<Air>(in, a, Slots{slots});
     else frag_store_point<Air>(in, out, m);
   }
 }
 
 extern "C" void host_frag_eval(int air, const u64* mc, long long smc,
     const u64* mn, long long smn, const u64* ac, long long sac,
-    const u64* an, long long san, const u64* rands, const u64* cc_t,
-    const u64* cc_b, const u64* bvals, const u64* zt, const u64* dinv,
-    long long sd, const u64* xp, long long sx, const int* idx, int B,
-    u64* out, long long m, int mode) {
-  const FrameIn f{mc, mn, ac, an, smc, smn, sac, san, rands, 0};
-  const MergeArgs a{cc_t, cc_b, bvals, zt, dinv, sd, xp, sx, idx, B};
+    const u64* an, long long san, const u64* mt, long long smt,
+    const u64* at, long long sat, long long nb, const u64* rands,
+    const u64* cc_t, const u64* cc_b, const u64* bvals, const u64* zt,
+    const u64* dinv, long long sd, const u64* lo, const u64* hi,
+    const u64* pw, int X, int h, long long m_dom, long long first,
+    const int* idx, int B, u64* out, long long m, int mode) {
+  const FrameIn f{mc, mn, ac, an, smc, smn, sac, san, mt, at, smt, sat, nb,
+                  rands, 0};
+  const XPow xp{lo, hi, pw, first, (u64)(m_dom - 1), h, X};
+  const MergeArgs a{cc_t, cc_b, bvals, zt, dinv, sd, xp, idx, B};
   if (air == 0) run<MidenTransitions>(f, a, out, m, mode);
   else run<FibTransitions>(f, a, out, m, mode);
+}
+
+// slot r's value at the m positions first .. first + m - 1, into out (X, m)
+extern "C" void host_xpow(const u64* lo, const u64* hi, const u64* pw, int X,
+    int h, long long m_dom, long long first, u64* out, long long m) {
+  const XPow xp{lo, hi, pw, first, (u64)(m_dom - 1), h, X};
+  for (int r = 0; r < X; ++r)
+    for (long long e = 0; e < m; ++e) out[r * m + e] = xp.at(r, first + e);
 }
 """
 
@@ -325,6 +338,7 @@ def host_kernel(tmp_path_factory):
                     str(d / "shim.so")], check=True, capture_output=True)
     lib = ctypes.CDLL(str(d / "shim.so"))
     lib.host_frag_eval.restype = None
+    lib.host_xpow.restype = None
     return lib
 
 
@@ -332,37 +346,57 @@ def _ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _host_call(lib, air, frames, rands, merger, prog, x_frag, zt, dinv,
-               transitions):
-    rand_t, adjs, idx = merger._k5_static(prog, "cpu")
+def _xpow_args(xpow):
+    """The C arguments of a `gl_cuda.XPow` (`csrc/frag_eval.cuh` XPow)."""
+    h = xpow.lo.shape[0].bit_length() - 1
+    return (_ptr(xpow.lo), _ptr(xpow.hi), _ptr(xpow.pw),
+            ctypes.c_int(xpow.pw.shape[0]), ctypes.c_int(h),
+            ctypes.c_longlong(xpow.m_dom), ctypes.c_longlong(xpow.first))
+
+
+def _host_call(lib, air, frames, rands, merger, a0, transitions):
+    """K5's per-point code on the host over one fragment, with the
+    arguments `k5_inputs` makes: a `Wrapped` frame read in place as its
+    body and tail."""
+    name, frames, rand_t, cc_t, cc_b, bvals, zt, dinv, xpow, idx, T = \
+        merger.k5_inputs(*frames, a0)
     assert rand_t.tolist() == [gl.as_i64(r) for r in rands]
-    xp = torch.stack([gl.pow_loop_plain(x_frag, a) for a in adjs])
     m = zt.shape[-1]
-    T = len(prog.outputs)
     out = torch.empty((T, m) if transitions else (m,), dtype=torch.int64)
-    fr = [f.contiguous() for f in frames]
-    args = []
-    for f in fr:
-        args += [_ptr(f), ctypes.c_longlong(f.stride(0))]
-    keep = (fr, xp, idx, dinv, zt, rand_t)
+
+    def pieces(f):                  # (body, tail), each a view as it lies
+        return tuple(f) if isinstance(f, TP.Wrapped) else (f, f[:, :0])
+
+    mc, ac = frames[0], frames[2]
+    (mn, mt), (an, at) = pieces(frames[1]), pieces(frames[3])
+    assert all(t.stride(-1) == 1 for t in (mc, ac, mn, mt, an, at))
+    nb = mn.shape[-1]
+    zt_c = zt.contiguous()
     lib.host_frag_eval(
-        ctypes.c_int(0 if air == "miden" else 1), *args, _ptr(rand_t),
-        _ptr(merger.cc_t), _ptr(merger.cc_b), _ptr(merger.bvals), _ptr(zt),
-        _ptr(dinv), ctypes.c_longlong(dinv.stride(0)), _ptr(xp),
-        ctypes.c_longlong(xp.stride(0)), _ptr(idx),
-        ctypes.c_int(merger.bvals.shape[0]), _ptr(out), ctypes.c_longlong(m),
-        ctypes.c_int(int(transitions)))
-    del keep
+        ctypes.c_int(0 if air == "miden" else 1),
+        _ptr(mc), ctypes.c_longlong(mc.stride(0)),
+        _ptr(mn), ctypes.c_longlong(mn.stride(0)),
+        _ptr(ac), ctypes.c_longlong(ac.stride(0)),
+        _ptr(an), ctypes.c_longlong(an.stride(0)),
+        _ptr(mt), ctypes.c_longlong(mt.stride(0)),
+        _ptr(at), ctypes.c_longlong(at.stride(0)), ctypes.c_longlong(nb),
+        _ptr(rand_t), _ptr(cc_t), _ptr(cc_b), _ptr(bvals), _ptr(zt_c),
+        _ptr(dinv), ctypes.c_longlong(dinv.stride(0)), *_xpow_args(xpow),
+        _ptr(idx), ctypes.c_int(bvals.shape[0]), _ptr(out),
+        ctypes.c_longlong(m), ctypes.c_int(int(transitions)))
     return out
 
 
-def _merger(tair, rands, rng):
+def _merger(tair, rands, rng, first=0, length=None):
+    """A merger with seeded coefficients over the domain positions first ..
+    first + length - 1 (the whole domain by default), as a mesh block's."""
     cc_t = [tuple(int(v) for v in _rand_cols(rng, 2))
             for _ in range(tair.num_transition_constraints)]
     cc_b = [tuple(int(v) for v in _rand_cols(rng, 2))
             for _ in range(tair.num_assertions)]
     return TP.ConstraintMerger(tair, rands, cc_t, cc_b,
-                               TP.ceval_domain(tair, "cpu"), "cpu")
+                               TP.ceval_domain(tair, "cpu", first, length),
+                               "cpu", first=first)
 
 
 def _jax_merge(jair, merger, frames, rands):
@@ -390,12 +424,14 @@ def _jax_merge(jair, merger, frames, rands):
 
 
 @pytest.mark.parametrize("air,kind", [(a, k) for a in ("miden", "fib")
-                                      for k in ("lde", "random")])
+                                      for k in ("lde", "random", "block")])
 def test_host_compiled_generated_code_equals_aero_tpu(airs, host_kernel,
                                                       air, kind):
     """The whole 512-point LDE domain of the 64-row trace as one fragment
-    (cur and nxt frames the domain and its wrap-around by the blowup), or
-    random frames over the same domain."""
+    (cur the domain, nxt its wrap-around by the blowup, read in place as
+    body and tail), random frames over the same domain, or a mesh block's
+    last fragment: the second half of the domain (its x^adj values from
+    domain position 256 on), nxt the block's tail and a random halo."""
     tair, jair, trace, aux, rands = airs[air]
     rng = np.random.default_rng(11)
     merger = _merger(tair, rands, rng)
@@ -403,33 +439,119 @@ def test_host_compiled_generated_code_equals_aero_tpu(airs, host_kernel,
     if kind == "lde":
         main_lde = lde(intt(gl.from_u64(trace, "cpu")), 3)
         aux_lde = lde(intt(gl.from_u64(aux, "cpu")), 3)
-        frames = (TP._frag(main_lde, 0, m), TP._frag(main_lde, 8, m),
-                  TP._frag(aux_lde, 0, m), TP._frag(aux_lde, 8, m))
-    else:
+        frames = (TP._frame(main_lde, 0, m), TP._frame(main_lde, 8, m),
+                  TP._frame(aux_lde, 0, m), TP._frame(aux_lde, 8, m))
+        assert isinstance(frames[1], TP.Wrapped)
+    elif kind == "random":
         frames = tuple(gl.from_u64(f, "cpu") for f in (
             _rand_cols(rng, (tair.main_width, m)),
             _rand_cols(rng, (tair.main_width, m)),
             _rand_cols(rng, (tair.aux_width, m)),
             _rand_cols(rng, (tair.aux_width, m))))
-    prog = symbolic.trace(type(tair))
-    rows = (merger.x_dom, merger.zt_inv, merger.denom_inv)
-    got_t = _host_call(host_kernel, air, frames, rands, merger, prog, *rows,
+    else:
+        m //= 2
+        merger = _merger(tair, rands, rng, first=m, length=m)
+        frames = []
+        for w in (tair.main_width, tair.aux_width):
+            block = gl.from_u64(_rand_cols(rng, (w, m)), "cpu")
+            halo = gl.from_u64(_rand_cols(rng, (w, 8)), "cpu")
+            frames += [block, TP.Wrapped(block[:, 8:], halo)]
+    got_t = _host_call(host_kernel, air, frames, rands, merger, 0,
                        transitions=True)
-    got = _host_call(host_kernel, air, frames, rands, merger, prog, *rows,
+    got = _host_call(host_kernel, air, frames, rands, merger, 0,
                      transitions=False)
-    want_t = _jax_transitions(jair, [gl.to_u64(f) for f in frames], rands)
+    whole = [TP.joined(f) for f in frames]
+    want_t = _jax_transitions(jair, [gl.to_u64(f) for f in whole], rands)
     for k, w in enumerate(want_t):
         assert np.array_equal(gl.to_u64(got_t[k]), w), f"constraint {k}"
     with jax.disable_jit():
-        want = _jax_merge(jair, merger, frames, rands)
+        want = _jax_merge(jair, merger, whole, rands)
     assert np.array_equal(gl.to_u64(got), want)
     # the route on the CPU is K5's plain version: the same values
     assert torch.equal(merger.fragment(*frames, 0), got)
     assert torch.equal(torch.stack(tair.evaluate_transitions(
-        *frames, merger.rands)), got_t)
+        *whole, merger.rands)), got_t)
     assert torch.equal(merger.fragment_plain(*frames, 0), got)
     assert torch.equal(merger.fragment_plain(*frames, 0, transitions=True),
                        got_t)
+
+
+def _xpow_plain(xpow, m):
+    """The x^adj rows (X, m) of K5's formula in plain torch ops on its
+    tables: slot r at domain position i is offset^adj lo[k mod 2^h]
+    hi[k >> h], k = (adj mod m_dom) i mod m_dom."""
+    h = xpow.lo.shape[0].bit_length() - 1
+    i = torch.arange(xpow.first, xpow.first + m, dtype=torch.int64)
+    rows = []
+    for r in range(xpow.pw.shape[0]):
+        # adj mod m_dom and i are below 2^32: the int64 product wraps, its
+        # low bits stay exact
+        k = (xpow.pw[r, 0] * i) & (xpow.m_dom - 1)
+        rows.append(gl.mul_plain(xpow.pw[r, 1], gl.mul_plain(
+            xpow.lo[k & ((1 << h) - 1)], xpow.hi[k >> h])))
+    return torch.stack(rows)
+
+
+# (air, rows, fragment points, where): a whole domain; a domain's first,
+# last (wrapping) and an odd fragment; a mesh block of a quarter of the
+# domain (rank 2 of 4) and its last fragment
+XPOW_CASES = [
+    ("miden", 1024, None, "whole"), ("miden", 1 << 14, None, "whole"),
+    ("fib", 1024, None, "whole"), ("fib", 1 << 14, None, "whole"),
+    ("miden", 1024, 2048, "first"), ("miden", 1024, 2048, "last"),
+    ("miden", 1024, 255, "odd"), ("fib", 1024, 2048, "last"),
+    ("fib", 1024, 255, "odd"), ("miden", 1024, 512, "block"),
+    ("fib", 1 << 14, 4096, "block")]
+
+
+@pytest.mark.parametrize("air,rows,m_frag,where", XPOW_CASES)
+def test_xpow_tables_give_every_exponents_powers(airs, host_kernel, air,
+                                                 rows, m_frag, where):
+    """K5's x^adj values from its two tables (`_xpow_static`), in the plain
+    rendering of the formula and in the committed C++ built for the host,
+    equal `pow_loop_plain` of the domain's x for every distinct exponent of
+    the AIR (one slot a degree class, then the assertions'); each slot the
+    adjustment of its class; and a fragment's frame at x g, cut where it
+    wraps into views of the domain, equal to `_frag`'s copy."""
+    tair = airs[air][0]
+    cls = type(tair)
+    if air == "miden":
+        big = cls(rows, tair.pub_inputs, tair.options, program=SRC)
+    else:
+        big = cls(rows, tair.pub_inputs, tair.options)
+    m_dom = rows * big.options.blowup_factor
+    prog = symbolic.trace(cls)
+    lo, hi, pw, adjs = TP._xpow_static(big, prog, "cpu")
+    assert len(adjs) == len(prog.degrees) + 1 == pw.shape[0]
+    t_adj = big.transition_adjustments()
+    for k, c in enumerate(prog.classes):
+        assert adjs[c] == t_adj[k]
+    assert set(big.boundary_adjustments()) <= set(adjs)
+    assert lo.shape[0] * hi.shape[0] == m_dom
+    start, length = (2 * (m_dom // 4), m_dom // 4) if where == "block" \
+        else (0, m_dom)
+    m = m_frag or m_dom
+    first = {"whole": 0, "first": 0, "last": m_dom - m, "odd": 3,
+             "block": start + length - m}[where]
+    x = TP.ceval_domain(big, "cpu", start, length)[0]
+    x = x[first - start:first - start + m]
+    xpow = TP.gl_cuda.XPow(lo, hi, pw, m_dom, first)
+    want = torch.stack([gl.pow_loop_plain(x, a) for a in adjs])
+    assert torch.equal(_xpow_plain(xpow, m), want)
+    got = torch.empty((len(adjs), m), dtype=torch.int64)
+    host_kernel.host_xpow(*_xpow_args(xpow), _ptr(got), ctypes.c_longlong(m))
+    assert torch.equal(got, want)
+    if where != "block":
+        cols = gl.from_u64(_rand_cols(np.random.default_rng(rows), (3, m_dom)),
+                           "cpu")
+        frame = TP._frame(cols, first + 8, m)
+        assert isinstance(frame, TP.Wrapped) == (first + 8 + m > m_dom)
+        if isinstance(frame, TP.Wrapped):   # views of the domain, no copy
+            assert frame.body.data_ptr() == cols[:, first + 8:].data_ptr()
+            assert frame.tail.data_ptr() == cols.data_ptr()
+        assert torch.equal(TP.joined(frame), TP._frag(cols, first + 8, m))
+        assert torch.equal(TP.joined(frame),
+                           torch.roll(cols, -(first + 8), dims=-1)[:, :m])
 
 
 @pytest.mark.parametrize("fault", ["edited digest", "other program",

@@ -749,9 +749,10 @@ def test_miden_proof_on_card_equals_cpu_through_the_field_kernels(
                                 "gl_elementwise": 1}
 
 
-def _k5_merger(air_name, log_rows, device, rng):
+def _k5_merger(air_name, log_rows, device, rng, first=0, length=None):
     """A MidenAir or FibAir of 2^log_rows rows with seeded rands and
-    coefficients, and its merger over the whole LDE domain on the card."""
+    coefficients, and its merger over the LDE domain's positions first ..
+    first + length - 1 on the card (the whole domain by default)."""
     from aero_tpu_torch.air import miden as TM
     from aero_tpu_torch.prover import prover as PR
     from aero_tpu_torch.sdk import DEFAULT_OPTIONS
@@ -775,7 +776,23 @@ def _k5_merger(air_name, log_rows, device, rng):
     cc_b = [tuple(int(v) for v in rng.integers(0, P, 2, np.uint64))
             for _ in range(air.num_assertions)]
     return PR.ConstraintMerger(air, rands, cc_t, cc_b,
-                               PR.ceval_domain(air, device), device)
+                               PR.ceval_domain(air, device, first, length),
+                               device, first=first)
+
+
+def _k5_fragment(merger, frames, a0):
+    """K5 through `merger.fragment` under a span: (the merged row, its
+    launches, the span's `frames_in_place`). No K1 launch makes its
+    x^adj rows any more."""
+    from aero_tpu_torch.field import gl_cuda
+    from aero_tpu_torch.utils import get_tracer, span
+    gl_cuda.reset_launches()
+    with span("k5_probe"):
+        got = merger.fragment(*frames, a0)
+    rec = get_tracer().records[-1]
+    assert rec.name == "k5_probe"
+    return got, dict(gl_cuda.LAUNCHES), rec.counters.get("frames_in_place",
+                                                          0)
 
 
 @pytest.mark.parametrize("air_name,log_rows,where", [
@@ -785,11 +802,12 @@ def _k5_merger(air_name, log_rows, device, rng):
 def test_frag_eval_kernel_matches_plain_and_eager(cuda_device, air_name,
                                                   log_rows, where):
     """K5 on a fragment of half the domain (the first, or the last, whose
-    nxt frame wraps around and is a copy), 20 times on fresh frames: the
-    merged row equal to the plain version and to the eager path (the
-    AIR's evaluate_transitions, one K1 launch a field op, then K3); the
-    transition values equal to evaluate_transitions op by op. "zeros":
-    every other row of the frames zero."""
+    nxt frame wraps around and is read in place, its body and the domain's
+    head), 20 times on fresh frames: the merged row equal to the plain
+    version and to the eager path (the AIR's evaluate_transitions, one K1
+    launch a field op, then K3); the transition values equal to
+    evaluate_transitions op by op; one launch, no K1 launch (K5 makes its
+    own x^adj values). "zeros": every other row of the frames zero."""
     from aero_tpu_torch.field import gl_cuda
     from aero_tpu_torch.prover import prover as PR
     rng = np.random.default_rng(log_rows * 7 + len(where))
@@ -804,18 +822,24 @@ def test_frag_eval_kernel_matches_plain_and_eager(cuda_device, air_name,
         if where == "zeros":
             main[::2] = 0
             aux[::2] = 0
-        frames = (PR._frag(main, a0, m_frag), PR._frag(main, a0 + 8, m_frag),
-                  PR._frag(aux, a0, m_frag), PR._frag(aux, a0 + 8, m_frag))
-        gl_cuda.reset_launches()
-        got = merger.fragment(*frames, a0)
-        assert gl_cuda.LAUNCHES[f"{air_name}_frag_eval"] == 1
-        assert gl_cuda.LAUNCHES["gl_constraint_merge"] == 0
-        assert torch.equal(got, merger.fragment_plain(*frames, a0))
+        frames = (PR._frame(main, a0, m_frag),
+                  PR._frame(main, a0 + 8, m_frag),
+                  PR._frame(aux, a0, m_frag), PR._frame(aux, a0 + 8, m_frag))
+        wraps = a0 + 8 + m_frag > m
+        assert isinstance(frames[1], PR.Wrapped) == wraps
+        got, launched, in_place = _k5_fragment(merger, frames, a0)
+        assert launched[f"{air_name}_frag_eval"] == 1
+        assert launched["gl_constraint_merge"] == 0
+        assert launched["gl_elementwise"] == 0
+        assert launched["gl_elementwise_copies"] == 0
+        assert in_place == int(wraps)
+        whole = [PR.joined(f) for f in frames]
+        assert torch.equal(got, merger.fragment_plain(*whole, a0))
         assert torch.equal(got, PR.constraint_merge(
-            *merger.merge_inputs(*frames, a0)))
+            *merger.merge_inputs(*whole, a0)))
         t_k5 = gl_cuda.frag_eval(*merger.k5_inputs(*frames, a0),
                                  transitions=True)
-        eager = air.evaluate_transitions(*frames, merger.rands)
+        eager = air.evaluate_transitions(*whole, merger.rands)
         assert t_k5.shape == (len(eager), m_frag)
         for k, ev in enumerate(eager):
             assert torch.equal(t_k5[k], ev), f"constraint {k}"
@@ -825,35 +849,110 @@ def test_frag_eval_kernel_matches_plain_and_eager(cuda_device, air_name,
     ("miden", 6, 255, "odd"), ("fib", 6, 255, "odd"),
     ("miden", 6, 129, "wrap"), ("fib", 6, 1, "odd"),
     ("miden", 18, 1 << 20, "start"), ("miden", 18, 1 << 20, "wrap"),
-    ("fib", 18, 1 << 20, "wrap")])
+    ("fib", 18, 1 << 20, "wrap"), ("miden", 6, 129, "block"),
+    ("miden", 18, 1 << 19, "block"), ("fib", 18, 1 << 19, "block")])
 def test_frag_eval_kernel_at_odd_and_dry_run_fragments(cuda_device, air_name,
                                                        log_rows, m_frag,
                                                        where):
     """K5 on fragments of an odd number of points (from an odd offset, or
-    the last points of the domain, whose nxt frame wraps), where the last
-    block holds fewer points than threads; and on the fragments of 2^20
-    points of a 2^18-row trace's 2^21-point domain, the dry run's: the
-    merged row and the transition values equal to the plain version."""
+    the last points of the domain, whose nxt frame wraps and is read in
+    place), where the last block holds fewer points than threads; on the
+    fragments of 2^20 points of a 2^18-row trace's 2^21-point domain; and
+    on a mesh block's last fragment ("block": rank 1 of 2, its merger from
+    domain position m / 2 on, nxt the block's tail and the halo, the next
+    block's first points copied out as `next_points` receives them): the
+    merged row and the transition values equal to the plain version, no K1
+    launch. A block's merged row also equals the whole domain's merger's
+    at the same points (the same coefficients)."""
     from aero_tpu_torch.field import gl_cuda
     from aero_tpu_torch.prover import prover as PR
-    rng = np.random.default_rng(log_rows * 131 + m_frag)
-    merger = _k5_merger(air_name, log_rows, cuda_device, rng)
+    seed = log_rows * 131 + m_frag
+    merger = _k5_merger(air_name, log_rows, cuda_device,
+                        np.random.default_rng(seed))
     air = merger.air
     m = merger.x_dom.shape[-1]
-    a0 = {"odd": 3, "start": 0, "wrap": m - m_frag}[where]
+    rng = np.random.default_rng(seed + 1)
     main = _felts(rng, (air.main_width, m), cuda_device)
     aux = _felts(rng, (air.aux_width, m), cuda_device)
-    frames = (PR._frag(main, a0, m_frag), PR._frag(main, a0 + 8, m_frag),
-              PR._frag(aux, a0, m_frag), PR._frag(aux, a0 + 8, m_frag))
-    gl_cuda.reset_launches()
-    got = merger.fragment(*frames, a0)
-    assert gl_cuda.LAUNCHES[f"{air_name}_frag_eval"] == 1
+    if where == "block":
+        whole = merger
+        m_blk = m // 2
+        merger = _k5_merger(air_name, log_rows, cuda_device,
+                            np.random.default_rng(seed), m_blk, m_blk)
+        a0 = m_blk - m_frag
+        frames = []
+        for x in (main, aux):
+            block, halo = x[:, m_blk:], x[:, :8].clone()
+            frames += [block[:, a0:], PR.Wrapped(block[:, a0 + 8:], halo)]
+    else:
+        a0 = {"odd": 3, "start": 0, "wrap": m - m_frag}[where]
+        frames = (PR._frame(main, a0, m_frag),
+                  PR._frame(main, a0 + 8, m_frag),
+                  PR._frame(aux, a0, m_frag),
+                  PR._frame(aux, a0 + 8, m_frag))
+    wraps = isinstance(frames[1], PR.Wrapped)
+    assert wraps == (where in ("wrap", "block"))
+    got, launched, in_place = _k5_fragment(merger, frames, a0)
+    assert launched[f"{air_name}_frag_eval"] == 1
+    assert launched["gl_elementwise"] == 0
+    assert launched["gl_elementwise_copies"] == 0
+    assert in_place == int(wraps)
     assert got.shape == (m_frag,)
     assert torch.equal(got, merger.fragment_plain(*frames, a0))
+    if where == "block":
+        assert torch.equal(got, whole.fragment(*(
+            PR._frame(x, m_blk + a0 + s, m_frag) for x in (main, aux)
+            for s in (0, 8)), m_blk + a0))
     t_k5 = gl_cuda.frag_eval(*merger.k5_inputs(*frames, a0),
                              transitions=True)
     assert torch.equal(t_k5, merger.fragment_plain(*frames, a0,
                                                    transitions=True))
+
+
+@pytest.mark.parametrize("log_frag", [10, 13])
+def test_golden_proof_reads_its_wrapping_frame_in_place(cuda_device,
+                                                       monkeypatch, log_frag):
+    """The 1024-row golden proof (fib(10), default options, an 8192-point
+    domain) in fragments of 2^10 points (8, the last wrapping) or as one:
+    its bytes keep the committed sha256 of `aero_tpu`'s proof, each
+    fragment is one K5 launch with no K1 launch inside `frag_eval`, and
+    the span reads `frames_in_place` 1."""
+    import json
+    import os
+    from aero_tpu_torch import sdk
+    from aero_tpu_torch.field import gl_cuda
+    from aero_tpu_torch.prover import prover as PR
+    from aero_tpu_torch.sdk.pb import aero_pb2 as pb
+    from aero_tpu_torch.utils import get_tracer
+    from aero_tpu_torch.vm import fibonacci_source
+    path = os.path.join(os.path.dirname(__file__), "golden", "torch_port",
+                        "miden_fib10_1024.json")
+    with open(path) as f:
+        want = json.load(f)
+    monkeypatch.setattr(PR, "FRAG", 1 << log_frag)
+    seen = []
+    frag_eval = gl_cuda.frag_eval
+
+    def counted(*args, **kwargs):
+        before = gl_cuda.LAUNCHES["gl_elementwise"]
+        out = frag_eval(*args, **kwargs)
+        seen.append(gl_cuda.LAUNCHES["gl_elementwise"] - before)
+        return out
+
+    monkeypatch.setattr(gl_cuda, "frag_eval", counted)
+    gl_cuda.reset_launches()
+    res = sdk.prove(pb.MidenProgram(program=fibonacci_source(10)),
+                    pb.MidenProgramInputs(stack_init=[1, 0]), min_rows=1024,
+                    device=cuda_device)
+    data = res.native_proof.to_bytes()
+    assert hashlib.sha256(data).hexdigest() == want["sha256"]
+    assert len(data) == want["length"]
+    n_frags = (8 << 10) >> log_frag
+    assert gl_cuda.LAUNCHES["miden_frag_eval"] == n_frags
+    assert seen == [0] * n_frags
+    frag = [r for r in get_tracer().records if r.name == "frag_eval"][-1]
+    assert frag.meta["n_frags"] == n_frags
+    assert frag.counters.get("frames_in_place") == 1
 
 
 def test_frag_eval_refuses_a_stale_generated_file(cuda_device, monkeypatch):
