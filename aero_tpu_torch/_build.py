@@ -71,7 +71,6 @@ SIGNATURES = {
     "gl_elementwise": _OPERAND + _OPERAND + [_P, _I64, _I32, _U64, _P],
     "gl_scan": [_P, _P, _P, _I64, _I64, _I64, _I32, _P],
     "gl_batch_inv": [_P, _P, _P, _I64, _I64, _I64, _P],
-    "gl_constraint_merge": [_P] * 6 + [_I32, _I32, _I64, _P],
     "gl_deep_combine": [_P, _I64, _I32] * 3 + [_P] * 7 + [_I64] + [_P] * 4
                        + [_I64, _P],
     # csrc/eval_multi.cu

@@ -4,8 +4,8 @@ which the host waits for the CUDA stream.
 A blocking copy between pageable host memory and the card, a scalar read of
 a card tensor and a synchronize each make the host wait until the stream
 has drained. Every such wait on the main path goes through a helper here,
-or is counted where it is made, as one `syncs` on the innermost open
-tracing span; on the CPU nothing waits and nothing is counted.
+which counts it as one `syncs` on the innermost open tracing span; on the
+CPU nothing waits and nothing is counted.
 """
 
 from __future__ import annotations

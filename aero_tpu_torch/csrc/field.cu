@@ -1,7 +1,7 @@
 // Goldilocks field algebra on the card: the device code that stands where
 // XLA fused aero_tpu's limb algebra (aero_tpu/field/jax_gl.py) under
 // jax.jit. None of these has a Pallas counterpart; on the TPU they were
-// compiled device programs, in the port they are four kernels:
+// compiled device programs, in the port they are three kernels:
 //
 //   K1 gl_elementwise   c = a + b, a - b, a * b mod p, or c = a^e for a
 //                       host exponent e (square, pow_loop, the Fermat inv):
@@ -11,9 +11,6 @@
 //                       and gf_cumsum, jax_gl.py:490, :496.
 //      gl_batch_inv     1 / x along rows, Montgomery's trick: jax_gl.
 //                       batch_inv (:309, its scans :312 and :343).
-//   K3 gl_constraint_merge  the random linear combination of all constraint
-//                       evaluations of one fragment: the merge of
-//                       jax.jit(frag_fn), aero_tpu/prover/prover.py:407-429.
 //   K4 gl_deep_combine  the DEEP quotient of one fragment as weighted
 //                       column sums: _deep_core_jit, prover.py:556-589.
 //
@@ -24,8 +21,8 @@
 // element, which is bound by the integer pipes. The design answers with
 // one pass over memory per call: every operand element is read once,
 // coalesced (neighbouring threads on neighbouring elements), and nothing
-// but the result is written. K3 and K4 fold 140-odd and 89 rows into one
-// output row without any temporary row. K2's scan moves 16 B an element
+// but the result is written. K4 folds 89 rows into one output row
+// without any temporary row. K2's scan moves 16 B an element
 // and does about two field operations an element, its batch inversion 24 B
 // and about six; with the multiply's 25 integer-ALU instructions, a
 // product scan's ALU time is about three fifths of its bytes' time and the
@@ -503,45 +500,6 @@ batch_inv_apply_kernel(const u64* __restrict__ in,
   store_tile<kInvItems>(sm, out + row * n, base, n);
 }
 
-// ------------------------------------------------------------------- K3
-
-// tab holds device pointers, each to m elements of a row:
-//   [0, T)         the transition evaluations ev_i
-//   [T, 2T)        x^adj_i, the degree adjustment of term i
-//   [2T, 2T+B)     the asserted columns col_j
-//   [2T+B, 2T+2B)  x^adj_j of assertion j
-//   [2T+2B, 2T+3B) 1 / (x - g^step_j), the boundary divisor's inverse
-// cc_t (T, 2) and cc_b (B, 2) the composition coefficients, bvals (B,)
-// the asserted values, zt the transition divisor's inverse:
-//   out = zt * sum_i (cc_t[i,0] + x^adj_i cc_t[i,1]) ev_i
-//       + sum_j (cc_b[j,0] + x^adj_j cc_b[j,1]) (col_j - b_j) dinv_j
-__global__ void constraint_merge_kernel(const u64* const* __restrict__ tab,
-                                        const u64* __restrict__ cc_t,
-                                        const u64* __restrict__ cc_b,
-                                        const u64* __restrict__ bvals,
-                                        const u64* __restrict__ zt,
-                                        u64* __restrict__ out, int T, int B,
-                                        long long m) {
-  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < m;
-       e += (long long)gridDim.x * blockDim.x) {
-    u64 acc = 0;
-#pragma unroll 1
-    for (int i = 0; i < T; ++i) {
-      const u64 k = gl_add(cc_t[2 * i], gl_mul(tab[T + i][e], cc_t[2 * i + 1]));
-      acc = gl_add(acc, gl_mul(k, tab[i][e]));
-    }
-    acc = gl_mul(acc, zt[e]);
-#pragma unroll 1
-    for (int j = 0; j < B; ++j) {
-      const u64 ev = gl_sub(tab[2 * T + j][e], bvals[j]);
-      const u64 k = gl_add(cc_b[2 * j],
-                           gl_mul(tab[2 * T + B + j][e], cc_b[2 * j + 1]));
-      acc = gl_add(acc, gl_mul(gl_mul(k, ev), tab[2 * T + 2 * B + j][e]));
-    }
-    out[e] = acc;
-  }
-}
-
 // ------------------------------------------------------------------- K4
 
 // Rows r of a (w, ld) matrix at column e: sum_r (L[r] - v[r]) wt[r], and
@@ -666,18 +624,6 @@ extern "C" int gl_batch_inv(const void* in, void* out, void* scratch,
   if (e != cudaSuccess) return (int)e;
   batch_inv_apply_kernel<<<(unsigned)tiles, kThreads, 0, s>>>(
       (const u64*)in, factor, (u64*)out, n, ntiles);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int gl_constraint_merge(const void* tab, const void* cc_t,
-                                   const void* cc_b, const void* bvals,
-                                   const void* zt, void* out, int T, int B,
-                                   long long m, void* stream) {
-  if (T < 0 || B < 0) return (int)cudaErrorInvalidValue;
-  if (m <= 0) return (int)cudaSuccess;
-  constraint_merge_kernel<<<grid_for(m), kThreads, 0, (cudaStream_t)stream>>>(
-      (const u64* const*)tab, (const u64*)cc_t, (const u64*)cc_b,
-      (const u64*)bvals, (const u64*)zt, (u64*)out, T, B, m);
   return (int)cudaGetLastError();
 }
 

@@ -17,8 +17,9 @@
 //               the first points after it, each read where it lies;
 //   MergeOut    folds each constraint value into the merge as it comes:
 //               out = zt * sum_k (c0_k + c1_k x^adj_k) v_k + sum_j (cb0_j
-//               + x^adj_j cb1_j)(col_j - b_j) dinv_j, K3's sum, with
-//               x^adj_k the value of constraint k's degree class;
+//               + x^adj_j cb1_j)(col_j - b_j) dinv_j, the sum of
+//               prover.constraint_merge_plain, with x^adj_k the value of
+//               constraint k's degree class;
 //   XPow        what a point makes its x^adj values from, once, before
 //               the constraints: x = offset w^i at domain position i, so
 //               x^adj = offset^adj w^(adj i mod m_dom), w^k from two

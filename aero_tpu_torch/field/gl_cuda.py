@@ -12,9 +12,6 @@ counterpart:
   and `gl_batch_inv`, Montgomery's
   batch inversion along the last axis (`jax_gl.batch_inv`), one call of
   three launches;
-- K3 `gl_constraint_merge`: the random linear combination of one fragment's
-  constraint evaluations (the merge of `jax.jit(frag_fn)`,
-  `aero_tpu/prover/prover.py:407-429`);
 - K4 `gl_deep_combine`: one fragment's DEEP quotient from its LDE rows
   (`_deep_core_jit`, `prover.py:556-589`);
 - K5 `<air>_frag_eval`: one fragment's constraint evaluation and merge in
@@ -34,7 +31,7 @@ The wrappers here take CUDA tensors only; `field/gl.py` and
 (`add_plain`, `constraint_merge_plain`, ...). `on_cuda` decides and raises
 on what no path takes. Every launch goes on the current stream and adds one
 to `LAUNCHES` under its kernel's name; `gl_elementwise_copies` counts the
-operands K1 or K3 / K4 had to copy first (a broadcast or stride that the
+operands K1, K4 or K5 had to copy first (a broadcast or stride that the
 kernel's indexing does not cover), so a profile shows how often that fires.
 """
 
@@ -49,7 +46,7 @@ from .. import _build
 from .sym import P
 
 LAUNCHES = {"gl_elementwise": 0, "gl_scan": 0, "gl_batch_inv": 0,
-            "gl_constraint_merge": 0, "gl_deep_combine": 0,
+            "gl_deep_combine": 0,
             **{f"{n}_frag_eval": 0 for n in _build.FRAG_EVAL_AIRS},
             **{f"{n}_aux_factors": 0 for n in _build.ROW_EVAL_AIRS},
             "gl_eval_multi": 0, "gl_elementwise_copies": 0}
@@ -237,7 +234,7 @@ def batch_inv(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# ---------------------------------------------------------------------- K3
+# --------------------------------------- rows, arrays and vectors of K4-K6
 
 def _row(t: torch.Tensor, m: int, keep: list) -> int:
     """The pointer of `t` as m contiguous elements, copied first if it is
@@ -257,47 +254,14 @@ def _dense(t: torch.Tensor, numel: int, what: str) -> int:
     return t.data_ptr()
 
 
-def _pointer_table(ptrs: Sequence[int], device) -> torch.Tensor:
-    """The row pointers as a device int64 array, copied from pinned host
-    memory without waiting for the stream."""
-    host = torch.tensor(list(ptrs), dtype=torch.int64).pin_memory()
-    return host.to(device, non_blocking=True)
-
-
 def device_vector(values: Sequence[int], device) -> torch.Tensor:
     """Field elements (ints) as a device int64 array of their canonical bit
     patterns, copied from pinned host memory without waiting for the
     stream."""
     canon = [int(v) % P for v in values]
-    return _pointer_table([v - (1 << 64) if v >= 1 << 63 else v
-                           for v in canon], device)
-
-
-def constraint_merge(t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt,
-                     dinv) -> torch.Tensor:
-    """K3 over one fragment of m points: every row argument is a tensor of m
-    elements (`t_evals`, `t_xp`: one a transition constraint; `cols`,
-    `b_xp`, `dinv`: one an assertion), `cc_t` (T, 2), `cc_b` (B, 2),
-    `bvals` (B,), `zt` (m,). Rows are read through a table of pointers, so
-    views and fresh tensors mix freely."""
-    T, B = len(t_evals), len(cols)
-    m = zt.shape[-1]
-    if len(t_xp) != T or len(b_xp) != B or len(dinv) != B:
-        raise ValueError("constraint_merge: the term lists differ in length")
-    on_cuda(zt, cc_t, cc_b, bvals, *t_evals, *t_xp, *cols, *b_xp, *dinv)
-    keep: list = []
-    ptrs = [_row(r, m, keep) for group in (t_evals, t_xp, cols, b_xp, dinv)
-            for r in group]
-    tab = _pointer_table(ptrs, zt.device) if ptrs else None
-    out = torch.empty(m, dtype=torch.int64, device=zt.device)
-    _build.launch("gl_constraint_merge",
-                  tab.data_ptr() if tab is not None else None,
-                  _dense(cc_t, 2 * T, "constraint_merge"),
-                  _dense(cc_b, 2 * B, "constraint_merge"),
-                  _dense(bvals, B, "constraint_merge"),
-                  _row(zt, m, keep), out.data_ptr(), T, B, m, _stream(zt))
-    LAUNCHES["gl_constraint_merge"] += 1
-    return out
+    host = torch.tensor([v - (1 << 64) if v >= 1 << 63 else v
+                         for v in canon], dtype=torch.int64).pin_memory()
+    return host.to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------- K4

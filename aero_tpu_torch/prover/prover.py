@@ -46,7 +46,7 @@ from ..spec.coin import RandomCoin
 from ..spec.hashing import hash_elements
 from ..spec.proof import (FriProof, FriProofLayer, OodFrame, Queries,
                                  StarkProof, felts_to_bytes)
-from .._device import index_tensor, synchronize, upload
+from .._device import index_tensor, synchronize, to_host, upload
 from ..utils import count, span
 
 from ..air import generated, symbolic
@@ -93,12 +93,6 @@ def joined(frame):
     if isinstance(frame, Wrapped):
         return torch.cat(list(frame), dim=-1)
     return frame
-
-
-def _frag(x: torch.Tensor, a: int, m_frag: int) -> torch.Tensor:
-    """x[..., a:a + m_frag], wrapping around the end of the domain, as one
-    tensor (a copy where it wraps)."""
-    return joined(_frame(x, a, m_frag))
 
 
 def ceval_domain(air: Air, device, first: int = 0,
@@ -213,16 +207,6 @@ def constraint_merge_plain(t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt,
     return merged
 
 
-def constraint_merge(t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt,
-                     dinv) -> torch.Tensor:
-    """One fragment's merge: kernel K3 (`gl_cuda.constraint_merge`) on the
-    card, `constraint_merge_plain` on the CPU."""
-    args = (t_evals, t_xp, cc_t, cols, b_xp, cc_b, bvals, zt, dinv)
-    if gl_cuda.on_cuda(zt):
-        return gl_cuda.constraint_merge(*args)
-    return constraint_merge_plain(*args)
-
-
 class ConstraintMerger:
     """The random linear combination of all constraint evaluations over a
     range of the LDE domain, evaluated fragment by fragment: one fragment's
@@ -230,11 +214,10 @@ class ConstraintMerger:
     +blowup positions), so the result is that of one evaluation over the
     whole range.
 
-    On the card, an AIR class with a generated kernel
-    (`air.generated.kernel_for`) takes kernel K5, one launch a fragment;
-    any other AIR, and every AIR on the CPU, takes `merge_inputs` (the
-    AIR's `evaluate_transitions`, one K1 launch a field op on the card)
-    and the merge (K3 on the card, its plain version on the CPU)."""
+    Two routes: on the card, kernel K5, one launch a fragment, generated
+    for the AIR's class (`air.generated.kernel_for`; a class without one
+    raises there); on the CPU, `merge_inputs` (the AIR's
+    `evaluate_transitions`) and `constraint_merge_plain`."""
 
     def __init__(self, air: Air, aux_rand, cc_transition, cc_boundary,
                  domain: tuple, device, first: int = 0):
@@ -289,16 +272,16 @@ class ConstraintMerger:
                  a0: int) -> torch.Tensor:
         """The merged evaluations of the `m_frag` points from position a0
         of the range; cur and nxt are (width, m_frag) frames, a nxt frame
-        that wraps possibly a `Wrapped`. The route is chosen by the device
-        and the AIR's class: K5 reads a `Wrapped` frame in place (counted
-        as `frames_in_place` on the innermost span), the others join it."""
-        if gl_cuda.on_cuda(main_cur) and generated.kernel_for(self.air):
+        that wraps possibly a `Wrapped`. The device chooses the route: K5
+        reads a `Wrapped` frame in place (counted as `frames_in_place` on
+        the innermost span), the plain route joins it."""
+        if gl_cuda.on_cuda(main_cur):
             args = self.k5_inputs(main_cur, main_nxt, aux_cur, aux_nxt, a0)
             if isinstance(main_nxt, Wrapped):
                 count("frames_in_place")
             return gl_cuda.frag_eval(*args)
-        return constraint_merge(*self.merge_inputs(main_cur, main_nxt,
-                                                   aux_cur, aux_nxt, a0))
+        return constraint_merge_plain(*self.merge_inputs(
+            main_cur, main_nxt, aux_cur, aux_nxt, a0))
 
     def _k5_static(self, prog: symbolic.Program, device) -> tuple:
         """What K5 reads that no fragment changes: the rands on the card,
@@ -345,17 +328,14 @@ class ConstraintMerger:
                 self.zt_inv[sl], self.denom_inv[:, sl], xpow, idx,
                 len(prog.outputs))
 
-    def fragment_plain(self, main_cur, main_nxt, aux_cur, aux_nxt, a0: int,
-                       transitions: bool = False) -> torch.Tensor:
-        """K5 (`fragment` on the card, or with `transitions` the T
-        constraint values) in plain torch ops alone, on any device: the
-        AIR's traced program interpreted with the plain ops
+    def fragment_plain(self, main_cur, main_nxt, aux_cur, aux_nxt,
+                       a0: int) -> torch.Tensor:
+        """K5 (`fragment` on the card) in plain torch ops alone, on any
+        device: the AIR's traced program interpreted with the plain ops
         (`symbolic.interpret`), then `constraint_merge_plain`."""
         prog = symbolic.trace(type(self.air))
         t_evals = symbolic.interpret(prog, main_cur, joined(main_nxt),
                                      aux_cur, joined(aux_nxt), self.rands)
-        if transitions:
-            return torch.stack(t_evals)
         return constraint_merge_plain(*self._merge_rows(
             t_evals, main_cur, aux_cur, a0, pow_loop_plain))
 
@@ -491,9 +471,7 @@ def stage_constraint_eval(air: Air, st: ProverState) -> None:
     with span("composition_intt_lde"):
         # iNTT over the coset: divide out the offset powers
         cc = mul(intt(merged), power_series(F.inv(offset), m, 1, device))
-        if cc.is_cuda:
-            count("syncs")          # the read of the flag below
-        if bool((cc[ce * n:] != 0).any()):
+        if bool(to_host((cc[ce * n:] != 0).any())):
             raise ValueError("composition degree overflow: the trace does "
                              "not satisfy the AIR")
         st.col_coeffs = cc[:ce * n].reshape(n, ce).T.contiguous()

@@ -5,7 +5,7 @@
 
 Needs one CUDA card, `nvcc` and `cuobjdump`; builds the kernels from
 `aero_tpu_torch/csrc` and the C++ VM from `aero_tpu_torch/vm/core` at first
-use. It imports the port and `bench_gpu.py` only. Set-up, then ten phases,
+use. It imports the port and `bench_gpu.py` only. Set-up, then nine phases,
 each of which raises on a failed check (so the script exits non-zero):
 
   0. card name, power limit and clocks, torch/CUDA versions, kernel and VM
@@ -24,11 +24,11 @@ each of which raises on a failed check (so the script exits non-zero):
      (`csrc/field.cu`; K5 generated from MidenAir's constraints,
      `csrc/air_miden.cu`; K6 from its bus factors, `csrc/aux_miden.cu`;
      K7 `csrc/eval_multi.cu`) vs their plain versions at the 2^20-row
-     proof's shapes, each timed beside its bound; K3 and K5 on that proof's
-     fragment 0, K5 also on its last (the next-row frame read in place,
-     body and tail) and against the eager path (K1 a field op, then K3),
-     with its registers, warps an SM and the words it reads (the set-up
-     fails if K5's merge kernel spills); K6 on that proof's trace, also
+     proof's shapes, each timed beside its bound; K5 on that proof's
+     fragment 0 and on its last (the next-row frame read in place, body
+     and tail), also against the eager path (K1 a field op, then the
+     plain merge), with its registers, warps an SM and the words it reads
+     (the set-up fails if K5's merge kernel spills); K6 on that proof's trace, also
      against `_bus_row_factors` op by op on the card; K7 on its 72 + 9 + 8
      coefficient rows at three points, the rows read where they lie;
   3. the golden-parameter Miden proof (fib(10), 1024 rows, default
@@ -108,12 +108,6 @@ each of which raises on a failed check (so the script exits non-zero):
      `bench_mul`, `bench_lde_2e24`, which also holds the batched 2^24 LDE
      equal to `ntt.lde`'s single 2^27-point transform), each printing its
      metric record, and the proof records from the times of phases 3 and 4.
-  10. the tracer's `syncs` counter: a proof of `long_fib_source` at 2^14
-     and at 2^20 rows (each after a proof to warm it) under
-     `torch.profiler`; the `syncs` counted inside each `prove_program`
-     must equal the stream and device synchronizes and synchronous copies
-     the profiler records inside that span's range; prints both counts and
-     the count by span.
 
 Kernel comparisons are exact (tolerance 0): finite-field and hash
 arithmetic. Launch counters are reset right before each proof and read
@@ -187,9 +181,6 @@ FIELD_REPLACES = {
                      "function's 16 B and 3 multiplies an element and one "
                      "inverse a row; the kernels move 24 B and do about "
                      "twice those multiplies"),
-    "gl_constraint_merge": ("aero_tpu/prover/prover.py:407",
-                            "no Pallas kernel: the merge of jax.jit(frag_fn)"
-                            " (prover.py:407-429)"),
     "gl_deep_combine": ("aero_tpu/prover/prover.py:556",
                         "no Pallas kernel: _deep_core_jit "
                         "(prover.py:556-589)"),
@@ -221,9 +212,6 @@ K7_REPLACES = ("aero_tpu/field/jax_gl.py:456",
                "eval_polys_multi :464); one call of two launches (the "
                "blocks' partial sums, their fold); the dry run evaluates "
                "no OOD point")
-K3_OFF_PATH = ("since PR 8 not on the main path: K5 evaluates and merges a "
-               "MidenAir fragment in one launch; K3 stays the merge of an "
-               "AIR without a generated kernel and K5's on-card cross-check")
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 SMS = 132                      # streaming multiprocessors of an H100 SXM
 LOG_LDE = 23                   # LDE domain of the 2^20-row proof
@@ -454,9 +442,8 @@ def field_sass_counts(fns) -> dict:
     are unrolled; the row factors' loops over tile products and the
     inverse's squarings count once), the scan's look-back loop apart: one
     trip a tile for warp 0's 32 lanes (the least a tile needs; its trips
-    depend on the order the tiles ran in); a term of
-    K3's two loops (transitions, assertions) and a row of K4's three (main,
-    aux, composition), one term a trip. Where a kernel's loops are not as
+    depend on the order the tiles ran in); and a row of K4's three loops
+    (main, aux, composition), one row a trip. Where a kernel's loops are not as
     described, its whole code stands for each unit, an overcount, and the
     line says so."""
     from aero_tpu_torch import _sass
@@ -510,7 +497,6 @@ def field_sass_counts(fns) -> dict:
         lb = _sass.count_instructions(max(spins, key=len))
         return minus(_sass.count_instructions(body), lb), lb
 
-    k3 = pick("constraint_merge_kernel", 2, each)
     k4 = pick("deep_combine_kernel", 3, each)
     scan, look_back = look_back_apart("chained_scan_kernelILi2E")
     return {
@@ -522,7 +508,6 @@ def field_sass_counts(fns) -> dict:
         "k2_tile_products": whole("tile_products_kernel"),
         "k2_row_factors": whole("row_factors_kernel"),
         "k2_apply": whole("batch_inv_apply_kernel"),
-        "k3_transition": k3[0], "k3_assertion": k3[1],
         "k4_main": k4[0], "k4_aux": k4[1], "k4_comp": k4[2]}
 
 
@@ -1121,48 +1106,6 @@ def field_k2(dev, gen, shape, zero_at, timer, sass, clock_hz, kernels=None,
     return err
 
 
-def synthetic_merge(dev, gen, m: int):
-    """MergeInputs of MidenAir's shape (112 transition terms, 46
-    assertions over 25 columns, 9 distinct x^adj rows, 2 divisor rows)."""
-    from aero_tpu_torch.prover import prover as PR
-    frame = device_felts((81, m), gen, dev)
-    xp = device_felts((9, m), gen, dev)
-    dinv = device_felts((2, m), gen, dev)
-    return PR.MergeInputs(
-        [device_felts((m,), gen, dev) for _ in range(112)],
-        [xp[i % 8] for i in range(112)], device_felts((112, 2), gen, dev),
-        [frame[j % 25] for j in range(46)], [xp[8]] * 46,
-        device_felts((46, 2), gen, dev), device_felts((46,), gen, dev),
-        device_felts((m,), gen, dev), [dinv[j % 2] for j in range(46)])
-
-
-def field_k3(inputs, timer, sass, clock_hz, kernels=None, what=""):
-    """K3 against its plain version on one fragment's merge inputs."""
-    from aero_tpu_torch.prover import prover as PR
-    err = max_abs_err(PR.constraint_merge(*inputs),
-                      PR.constraint_merge_plain(*inputs))
-    m = inputs.zt.shape[-1]
-    check(err == 0, f"K3 {what}: kernel == plain")
-    if kernels is None:
-        return err
-    T, B = len(inputs.t_evals), len(inputs.cols)
-    rows = {r.data_ptr() for g in (inputs.t_evals, inputs.t_xp, inputs.cols,
-                                   inputs.b_xp, inputs.dinv) for r in g}
-    rows.add(inputs.zt.data_ptr())
-    ms = timer(lambda: PR.gl_cuda.constraint_merge(*inputs), iters=10)
-    pms = cuda_ms(lambda: PR.constraint_merge_plain(*inputs), iters=1)
-    log(f"[phase 2b] K3 gl_constraint_merge {what}: {T} transition terms, "
-        f"{B} assertions, {len(rows)} distinct rows read: kernel {ms:.4f} "
-        f"ms, plain {pms:.4f} ms, max_abs_err {err}")
-    # rows read once and the output written once; the pointer table and
-    # the coefficients
-    record(kernels, "gl_constraint_merge", f"{what}: {len(rows)} rows of "
-           f"{m}", err, ms, pms, (len(rows) + 1) * m * 8 + (4 * T + 6 * B) * 8,
-           [(m * T, sass["k3_transition"]), (m * B, sass["k3_assertion"])],
-           None, clock_hz)
-    return err
-
-
 def field_k4(dev, gen, widths, log_m: int, log_ld: int, timer, sass,
              clock_hz, kernels=None):
     """K4 (and `_deep_core` around it) against the plain versions: a
@@ -1409,12 +1352,13 @@ def k5_terms(merger, sass) -> tuple:
 def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
              what="", wrapped=None):
     """K5 on one fragment against the eager path (the AIR's own
-    evaluate_transitions, one K1 launch a field op, and K3) and against
-    its plain version (the traced program in the plain ops and
-    constraint_merge_plain), merged rows and transition values; then,
-    with `kernels`, timed beside its bound, and on `wrapped` (frames, a0),
-    the last fragment, its next-row frame read in place, against its plain
-    version and timed."""
+    evaluate_transitions, one K1 launch a field op, and
+    constraint_merge_plain on the card) and against its plain version
+    (the traced program in the plain ops and constraint_merge_plain),
+    merged rows and transition values; then, with `kernels`, timed beside
+    its bound, and on `wrapped` (frames, a0), the last fragment, its
+    next-row frame read in place, against its plain version and timed."""
+    from aero_tpu_torch.air import symbolic
     from aero_tpu_torch.field import gl_cuda
     from aero_tpu_torch.prover import prover as PR
     gl_cuda.reset_launches()
@@ -1427,30 +1371,28 @@ def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
           f"K5 {what}: one launch, its {slots} x^adj values made inside it "
           "(no K1 launch)")
     inputs = merger.merge_inputs(*frames, a0)
-    err = max_abs_err(got, PR.constraint_merge(*inputs))
+    err = max_abs_err(got, PR.constraint_merge_plain(*inputs))
     t_k5 = gl_cuda.frag_eval(*k5_args, transitions=True)
     err = max(err, max_abs_err(t_k5, torch.stack(list(inputs.t_evals))))
     del inputs
     err = max(err, max_abs_err(got, merger.fragment_plain(*frames, a0)))
-    err = max(err, max_abs_err(t_k5, merger.fragment_plain(
-        *frames, a0, transitions=True)))
+    err = max(err, max_abs_err(t_k5, torch.stack(symbolic.interpret(
+        symbolic.trace(type(merger.air)), *(PR.joined(f) for f in frames),
+        merger.rands))))
     del t_k5
     m = frames[0].shape[-1]
-    check(err == 0, f"K5 {what}: kernel == eager K1 + K3 == plain, merged "
+    check(err == 0, f"K5 {what}: kernel == eager == plain, merged "
           "and transition values")
     if kernels is None:
         return err
     ms = timer(lambda: gl_cuda.frag_eval(*k5_args), iters=10)
     whole = timer(lambda: merger.fragment(*frames, a0), iters=10)
     route_host = host_ms(lambda: merger.fragment(*frames, a0))
-    eager = host_ms(lambda: PR.constraint_merge(
-        *merger.merge_inputs(*frames, a0)))
     pms = cuda_ms(lambda: merger.fragment_plain(*frames, a0), iters=1)
     log(f"[phase 2b] K5 miden_frag_eval {what}: kernel {ms:.4f} ms, its "
         f"{slots} x^adj values made inside; through "
         f"ConstraintMerger.fragment {whole:.4f} ms (host clock: "
-        f"{route_host:.3f} ms); eager K1 + K3 {eager:.3f} ms (host clock); "
-        f"plain {pms:.3f} ms; max_abs_err {err}")
+        f"{route_host:.3f} ms); plain {pms:.3f} ms; max_abs_err {err}")
     last_ms = None
     if wrapped is not None:
         w_frames, w_a0 = wrapped
@@ -1492,8 +1434,7 @@ def field_k5(merger, frames, a0, timer, sass, clock_hz, kernels=None,
     record(kernels, "miden_frag_eval", f"{what}: {m} points, {rows} rows",
            err, ms, pms, rows * m * 8, [(m * u, c) for u, c in need],
            None, clock_hz)
-    kernels["miden_frag_eval"].update(eager_k1_k3_ms=eager,
-                                      route_ms=whole,
+    kernels["miden_frag_eval"].update(route_ms=whole,
                                       last_fragment_ms=last_ms,
                                       words_read_per_point=words)
     return err
@@ -1615,14 +1556,8 @@ def phase_field(dev, gen, kernels, sass, clock_hz) -> None:
     t0 = time.perf_counter()
     merger, frames, last, (trace, rands, main_polys, aux_polys) = \
         scale_merger(dev)
-    inputs = merger.merge_inputs(*frames, 0)
-    log(f"[phase 2b] the 2^20-row proof's fragment 0, through aux_commit "
-        f"and the eager constraint evaluation: {time.perf_counter() - t0:.3f}"
-        " s")
-    field_k3(inputs, timer, sass, clock_hz, kernels,
-             "fragment 0 of the 2^20-row proof")
-    del inputs
-    torch.cuda.empty_cache()
+    log(f"[phase 2b] the 2^20-row proof's fragment 0, through aux_commit: "
+        f"{time.perf_counter() - t0:.3f} s")
     field_k5(merger, frames, 0, timer, sass, clock_hz, kernels,
              "fragment 0 of the 2^20-row proof", wrapped=last)
     air = merger.air
@@ -1735,8 +1670,7 @@ def _verify(res, src: str) -> None:
     verify(proof, pub, air=air)
 
 
-# the kernels of the main path; K3 left it in PR 8 (K5 merges a MidenAir
-# fragment) and keeps its row in the `kernels` line with its launches
+# the kernels of the main path
 FIELD_KERNELS = ("gl_elementwise", "gl_scan", "gl_batch_inv",
                  "gl_deep_combine", "miden_frag_eval", "miden_aux_factors",
                  "gl_eval_multi")
@@ -1748,7 +1682,6 @@ PROOF_K6, PROOF_K7, PROOF_K1_MAX = 1, 2, 178
 PATH_KERNELS = ("gl_colntt", "gl_colntt_lde", "blake2s_hash_columns",
                 "blake2s_merge_level", "blake2s_grind_pow",
                 "merkle_gather") + FIELD_KERNELS
-COUNTED_KERNELS = PATH_KERNELS + ("gl_constraint_merge",)
 
 
 def phase_golden(dev):
@@ -1771,8 +1704,6 @@ def phase_golden(dev):
     log("[phase 3] golden proof verifies under spec.verifier (air=port air)")
     for name in PATH_KERNELS:
         check(counts[name] > 0, f"{name} launched in the golden proof")
-    check(counts["gl_constraint_merge"] == 0,
-          "the golden proof merges through K5, not K3")
     check(counts["miden_aux_factors"] == PROOF_K6
           and counts["gl_eval_multi"] == PROOF_K7,
           "the golden proof builds its bus factors in one K6 launch and "
@@ -1842,9 +1773,7 @@ def phase_scale(dev, kernels, proof_out):
           "sdk.prove's proof and public inputs == the bench's")
     for name in PATH_KERNELS:
         check(counts[name] > 0, f"{name} launched in the 2^20-row proof")
-    check(counts["gl_constraint_merge"] == 0,
-          "the 2^20-row proof merges through K5, not K3")
-    for name in COUNTED_KERNELS:
+    for name in PATH_KERNELS:
         kernels[name]["launches"] = counts[name]
     t0 = time.perf_counter()
     _verify(res, r.prep.src)
@@ -2187,7 +2116,7 @@ def phase_dryrun_shapes(dev, gen, free_bytes: int) -> dict:
     del d, k
     # the field kernels: the aux bus scans (4, rows), the divisors of a
     # block (2, m / D) and the DEEP divisors of a fragment (3, m_frag) of
-    # both depths; K3, K4 and K5 on the last fragment (2^20 points) of the
+    # both depths; K4 and K5 on the last fragment (2^20 points) of the
     # whole 2^21-point domain at 2^18 rows, of a world-1 block (2^23) and
     # of a world-4 block (2^21) at 2^20 rows
     worst = 0
@@ -2200,8 +2129,6 @@ def phase_dryrun_shapes(dev, gen, free_bytes: int) -> dict:
     for log_rows, log_m, log_ld in ((LOG_MXU_DRYRUN_ROWS, 20, 21),
                                     (LOG_MESH_ROWS, 20, 23),
                                     (LOG_MESH_ROWS, 20, 21)):
-        worst = max(worst, field_k3(synthetic_merge(dev, gen, 1 << log_m),
-                                    None, None, None, what=f"2^{log_m}"))
         worst = max(worst, field_k4(dev, gen, (72, 9, 8), log_m, log_ld,
                                     None, None, None))
         merger, frames, a0 = dryrun_merger(dev, gen, log_m, log_ld, log_rows)
@@ -2220,7 +2147,7 @@ def phase_dryrun_shapes(dev, gen, free_bytes: int) -> dict:
                                     rands, None, None, None,
                                     what=f"{rows} rows"))
     log(f"[phase 7] shapes of every world: K1 at 2^{LOG_MXU_DRYRUN_ROWS} and "
-        f"2^{LOG_MESH_ROWS}, K2 on the aux scans and divisors, K3, K4 and K5 "
+        f"2^{LOG_MESH_ROWS}, K2 on the aux scans and divisors, K4 and K5 "
         f"on the last fragments of 2^21- and 2^23-point blocks, K6 on traces "
         f"of 64, 2^{LOG_MXU_DRYRUN_ROWS} and 2^{LOG_MESH_ROWS} rows: kernel "
         f"== plain, max_abs_err {worst}")
@@ -2364,7 +2291,7 @@ def phase_dryrun(dev, gen, kernels):
         log(f"[phase 7] {NCCL_WORLD4[2]}: not run, this machine has "
             f"{torch.cuda.device_count()} CUDA card(s) "
             f"(torch.cuda.device_count())")
-    for name in COUNTED_KERNELS:
+    for name in PATH_KERNELS:
         kernels[name]["launches_dryrun_world4_nccl"] = None
     rank_peaks = {}
     for world, exchange, how in runs:
@@ -2380,11 +2307,9 @@ def phase_dryrun(dev, gen, kernels):
             f"{time.perf_counter() - t0:.3f} s with the start of the ranks")
         check(total["blake2s_grind_pow"] == 0,
               "the dry run has no proof of work and launches no grind")
-        check(total["gl_constraint_merge"] == 0,
-              "the dry run merges through K5, not K3")
         key = (f"launches_dryrun_world{world}"
                + ("_nccl" if (world, exchange) == NCCL_WORLD4[:2] else ""))
-        for name in COUNTED_KERNELS:
+        for name in PATH_KERNELS:
             kernels[name][key] = total[name]
         rank_peaks[exchange, world] = max(r["peak_device_bytes"]
                                           for r in out.ranks)
@@ -2692,46 +2617,6 @@ def phase_bench(dev, rng, gen, sass, clock_hz, proof_bench, scale_bench):
     bench_gpu.emit_proof(proof_bench)
 
 
-def phase_syncs(dev) -> None:
-    """Phase 10: the waits for the stream that the tracer counts against
-    those the profiler records, a proof at 2^14 and one at 2^20 rows."""
-    from torch.profiler import ProfilerActivity, profile
-    from aero_tpu_torch.prover import prove
-    from aero_tpu_torch.utils import get_tracer, subtree, subtree_count
-    from aero_tpu_torch.utils.tracing import profiled_syncs
-    logs = (14, 20)
-    preps = [bench_gpu._prepare(long_fib_source(((1 << k) - 64) // 12),
-                                [0, 1], 1 << k, 16, dev) for k in logs]
-    for prep in preps:
-        prove(prep.air, prep.trace, prep.pub)
-    tracer = get_tracer()
-    tracer.reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for prep in preps:
-            prove(prep.air, prep.trace, prep.pub)
-    recs = list(tracer.records)
-    tracer.reset()
-    roots = sorted((r for r in recs if r.name == "prove_program"),
-                   key=lambda r: r.index)
-    counted = [subtree_count(recs, r, "syncs") for r in roots]
-    seen = profiled_syncs(prof, "prove_program")
-    check(any(e.name == "cudaLaunchKernel" for e in prof.events()),
-          "torch.profiler recorded the runtime's calls")
-    for k, root, c, s in zip(logs, roots, counted, seen):
-        by_span: dict = {}
-        for r in subtree(recs, root):
-            if r.counters.get("syncs"):
-                by_span[r.name] = by_span.get(r.name, 0) + r.counters["syncs"]
-        log(f"[phase 10] 2^{k} rows: {c} syncs counted inside prove_program, "
-            f"{s} synchronizing calls in its range; by span "
-            f"{json.dumps(by_span)}")
-    check(seen == counted, f"the syncs counted {counted} equal the "
-          f"synchronizing calls the profiler saw {seen}")
-    del preps
-    torch.cuda.empty_cache()
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     proof_out = argv[argv.index("--proof-out") + 1] \
@@ -2801,7 +2686,6 @@ def main(argv=None) -> int:
                               replaces=K7_REPLACES[0], note=K7_REPLACES[1],
                               **k7_res),
     }
-    kernels["gl_constraint_merge"]["note"] += "; " + K3_OFF_PATH
     phase_blake2s(dev, rng, kernels, sass, clock_hz)
     phase_blake2s_path_shapes(dev, gen, kernels, sass, clock_hz)
     phase_ntt(dev, rng, gen, kernels, sass, clock_hz)
@@ -2820,7 +2704,6 @@ def main(argv=None) -> int:
     phase_mxu(dev, rng, gen, golden_digest, dryrun_roots)
     torch.cuda.empty_cache()
     phase_bench(dev, rng, gen, sass, clock_hz, proof_bench, scale_bench)
-    phase_syncs(dev)
 
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
@@ -2834,7 +2717,6 @@ def main(argv=None) -> int:
                                     "global_loads", "blocks_per_sm",
                                     "warps_per_sm", "words_read_per_point",
                                     "route_ms", "last_fragment_ms",
-                                    "eager_k1_k3_ms",
                                     "op_by_op_k1_ms")
             if key in k}}
         for name, k in kernels.items()]}))

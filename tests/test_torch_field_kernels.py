@@ -1,12 +1,13 @@
-"""The plain versions of the field kernels (csrc/field.cu, K1-K4) against
-`aero_tpu` (JAX, CPU), and the CPU side of their wrappers.
+"""The plain versions of the field kernels (csrc/field.cu, K1, K2, K4) and
+of the constraint merge against `aero_tpu` (JAX, CPU), and the CPU side of
+their wrappers.
 
-K1 (field ops), K2 (scans, batch_inv), K3 (the constraint merge) and K4
-(the DEEP combination) run on the card only; here each wrapper takes its
-plain version, which is what the card's kernels are held to by
-`tests/test_torch_gpu.py` and `chip_smoke.py`. Inputs come from numpy with
-a fixed seed, every comparison is exact, and every case stays at 2^8
-points or fewer, the JAX side op by op (`jax.disable_jit`).
+K1 (field ops), K2 (scans, batch_inv) and K4 (the DEEP combination) run on
+the card only; here each wrapper takes its plain version, which is what the
+card's kernels are held to by `tests/test_torch_gpu.py` and
+`chip_smoke.py`. Inputs come from numpy with a fixed seed, every comparison
+is exact, and every case stays at 2^8 points or fewer, the JAX side op by
+op (`jax.disable_jit`).
 """
 
 import functools
@@ -309,7 +310,7 @@ def test_k2_chained_scan_combine_matches_jax(fn, n):
         assert np.array_equal(got, want)
 
 
-# ---------------------------------------------------------------------- K3
+# ------------------------------------------------------- constraint merge
 
 @pytest.fixture(scope="module")
 def miden_frames():
@@ -365,18 +366,20 @@ def _jax_merge(jair, merger, frames, inputs, rands):
 
 
 def test_k3_plain_merge_matches_jax_on_the_same_frames(miden_frames):
+    """`constraint_merge_plain`, and `merger.fragment`'s CPU route, against
+    JAX's merge on the same frames. The name is kept from the merge kernel
+    K3, which the port no longer has: K5 merges on the card."""
     jair, merger, main_lde, aux_lde, rands = miden_frames
     m = main_lde.shape[-1]
-    frames = (TP._frag(main_lde, 0, m), TP._frag(main_lde, 8, m),
-              TP._frag(aux_lde, 0, m), TP._frag(aux_lde, 8, m))
+    frames = tuple(TP.joined(TP._frame(x, a, m))
+                   for x in (main_lde, aux_lde) for a in (0, 8))
     inputs = merger.merge_inputs(*frames, 0)
-    # what the kernel reads as rows: every evaluation a full (m,) row
+    # every term a full (m,) row
     assert len(inputs.t_evals) == 112 and len(inputs.cols) == 46
     for r in (*inputs.t_evals, *inputs.t_xp, *inputs.cols, *inputs.b_xp,
               *inputs.dinv, inputs.zt):
         assert tuple(r.shape) == (m,) and r.stride(0) == 1
     got = TP.constraint_merge_plain(*inputs)
-    assert torch.equal(TP.constraint_merge(*inputs), got)
     assert torch.equal(merger.fragment(*frames, 0), got)
     with jax.disable_jit():
         want = _jax_merge(jair, merger, frames, inputs, rands)

@@ -472,8 +472,8 @@ def test_host_compiled_generated_code_equals_aero_tpu(airs, host_kernel,
     assert torch.equal(torch.stack(tair.evaluate_transitions(
         *whole, merger.rands)), got_t)
     assert torch.equal(merger.fragment_plain(*frames, 0), got)
-    assert torch.equal(merger.fragment_plain(*frames, 0, transitions=True),
-                       got_t)
+    assert torch.equal(torch.stack(symbolic.interpret(
+        symbolic.trace(type(tair)), *whole, merger.rands)), got_t)
 
 
 def _xpow_plain(xpow, m):
@@ -512,7 +512,8 @@ def test_xpow_tables_give_every_exponents_powers(airs, host_kernel, air,
     equal `pow_loop_plain` of the domain's x for every distinct exponent of
     the AIR (one slot a degree class, then the assertions'); each slot the
     adjustment of its class; and a fragment's frame at x g, cut where it
-    wraps into views of the domain, equal to `_frag`'s copy."""
+    wraps into views of the domain, equal to the domain's points from
+    there on, read around its end."""
     tair = airs[air][0]
     cls = type(tair)
     if air == "miden":
@@ -549,7 +550,8 @@ def test_xpow_tables_give_every_exponents_powers(airs, host_kernel, air,
         if isinstance(frame, TP.Wrapped):   # views of the domain, no copy
             assert frame.body.data_ptr() == cols[:, first + 8:].data_ptr()
             assert frame.tail.data_ptr() == cols.data_ptr()
-        assert torch.equal(TP.joined(frame), TP._frag(cols, first + 8, m))
+        assert torch.equal(TP.joined(frame), torch.cat(
+            [cols, cols], dim=-1)[:, first + 8:first + 8 + m])
         assert torch.equal(TP.joined(frame),
                            torch.roll(cols, -(first + 8), dims=-1)[:, :m])
 

@@ -670,31 +670,6 @@ def test_field_wrappers_refuse_a_cpu_tensor(cuda_device):
         gl_cuda.batch_inv(cpu)
 
 
-@pytest.mark.parametrize("T,B,m", [(3, 4, 512), (112, 46, 4099),
-                                   (112, 46, 1 << 20), (5, 0, 7)])
-def test_constraint_merge_kernel_matches_plain(cuda_device, T, B, m):
-    from aero_tpu_torch.prover import prover as PR
-    rng = np.random.default_rng(T * B + m)
-    frame = _felts(rng, (8, m + 16), cuda_device)
-    t_evals = [_felts(rng, (m,), cuda_device) for _ in range(T)]
-    t_evals[0] = frame[1, 3:3 + m]                      # a view, not fresh
-    if T > 2:
-        t_evals[2] = PR.scalar(9, cuda_device)          # copied and counted
-    xp = [_felts(rng, (m,), cuda_device) for _ in range(4)]
-    dinv = _felts(rng, (2, m), cuda_device)
-    args = PR.MergeInputs(
-        t_evals, [xp[i % 4] for i in range(T)], _felts(rng, (T, 2),
-                                                       cuda_device),
-        [frame[j % 8, :m] for j in range(B)], [xp[3]] * B,
-        _felts(rng, (B, 2), cuda_device), _felts(rng, (B,), cuda_device),
-        _felts(rng, (m,), cuda_device), [dinv[j % 2] for j in range(B)])
-    PR.gl_cuda.reset_launches()
-    got = PR.constraint_merge(*args)
-    assert PR.gl_cuda.LAUNCHES["gl_constraint_merge"] == 1
-    assert PR.gl_cuda.LAUNCHES["gl_elementwise_copies"] == (T > 2)
-    assert torch.equal(got, PR.constraint_merge_plain(*args))
-
-
 @pytest.mark.parametrize("widths,m,ld", [((5, 2, 2), 256, 2048),
                                          ((72, 9, 8), 4099, 4099),
                                          ((2, 0, 8), 1000, 3000),
@@ -739,7 +714,6 @@ def test_miden_proof_on_card_equals_cpu_through_the_field_kernels(
     for name in ("gl_elementwise", "gl_scan", "gl_batch_inv",
                  "gl_deep_combine", "miden_frag_eval"):
         assert gl_cuda.LAUNCHES[name] > 0, name
-    assert gl_cuda.LAUNCHES["gl_constraint_merge"] == 0     # K5 merges
     cpu = sdk.prove(program, inputs, fast, min_rows=64, device="cpu")
     assert card.native_proof.to_bytes() == cpu.native_proof.to_bytes()
     a = _felts(np.random.default_rng(0), (1 << 10,), cuda_device)
@@ -805,7 +779,8 @@ def test_frag_eval_kernel_matches_plain_and_eager(cuda_device, air_name,
     nxt frame wraps around and is read in place, its body and the domain's
     head), 20 times on fresh frames: the merged row equal to the plain
     version and to the eager path (the AIR's evaluate_transitions, one K1
-    launch a field op, then K3); the transition values equal to
+    launch a field op, then `constraint_merge_plain`); the transition
+    values equal to
     evaluate_transitions op by op; one launch, no K1 launch (K5 makes its
     own x^adj values). "zeros": every other row of the frames zero."""
     from aero_tpu_torch.field import gl_cuda
@@ -829,13 +804,12 @@ def test_frag_eval_kernel_matches_plain_and_eager(cuda_device, air_name,
         assert isinstance(frames[1], PR.Wrapped) == wraps
         got, launched, in_place = _k5_fragment(merger, frames, a0)
         assert launched[f"{air_name}_frag_eval"] == 1
-        assert launched["gl_constraint_merge"] == 0
         assert launched["gl_elementwise"] == 0
         assert launched["gl_elementwise_copies"] == 0
         assert in_place == int(wraps)
         whole = [PR.joined(f) for f in frames]
         assert torch.equal(got, merger.fragment_plain(*whole, a0))
-        assert torch.equal(got, PR.constraint_merge(
+        assert torch.equal(got, PR.constraint_merge_plain(
             *merger.merge_inputs(*whole, a0)))
         t_k5 = gl_cuda.frag_eval(*merger.k5_inputs(*frames, a0),
                                  transitions=True)
@@ -864,6 +838,7 @@ def test_frag_eval_kernel_at_odd_and_dry_run_fragments(cuda_device, air_name,
     merged row and the transition values equal to the plain version, no K1
     launch. A block's merged row also equals the whole domain's merger's
     at the same points (the same coefficients)."""
+    from aero_tpu_torch.air import symbolic
     from aero_tpu_torch.field import gl_cuda
     from aero_tpu_torch.prover import prover as PR
     seed = log_rows * 131 + m_frag
@@ -905,8 +880,9 @@ def test_frag_eval_kernel_at_odd_and_dry_run_fragments(cuda_device, air_name,
             for s in (0, 8)), m_blk + a0))
     t_k5 = gl_cuda.frag_eval(*merger.k5_inputs(*frames, a0),
                              transitions=True)
-    assert torch.equal(t_k5, merger.fragment_plain(*frames, a0,
-                                                   transitions=True))
+    assert torch.equal(t_k5, torch.stack(symbolic.interpret(
+        symbolic.trace(type(air)), *(PR.joined(f) for f in frames),
+        merger.rands)))
 
 
 @pytest.mark.parametrize("log_frag", [10, 13])
@@ -957,8 +933,8 @@ def test_golden_proof_reads_its_wrapping_frame_in_place(cuda_device,
 
 def test_frag_eval_refuses_a_stale_generated_file(cuda_device, monkeypatch):
     """No fallback: a generated file the AIR no longer traces to raises on
-    the card, and so does an AIR class without a generated kernel asked
-    for K5."""
+    the card, and so does a fragment of an AIR class without a generated
+    kernel: on the card every fragment is K5."""
     from aero_tpu_torch.air import generated, symbolic
     from aero_tpu_torch.air import miden as TM
     from aero_tpu_torch.prover import prover as PR
@@ -966,7 +942,8 @@ def test_frag_eval_refuses_a_stale_generated_file(cuda_device, monkeypatch):
     m = merger.x_dom.shape[-1]
     main = _felts(np.random.default_rng(6), (2, m), cuda_device)
     aux = _felts(np.random.default_rng(7), (1, m), cuda_device)
-    frames = (main, PR._frag(main, 8, m), aux, PR._frag(aux, 8, m))
+    frames = (main, PR.joined(PR._frame(main, 8, m)), aux,
+              PR.joined(PR._frame(aux, 8, m)))
     monkeypatch.setattr(generated, "_current", {})
     monkeypatch.setattr(generated, "trace",
                         lambda cls: symbolic.trace(TM.MidenAir))
@@ -978,7 +955,7 @@ def test_frag_eval_refuses_a_stale_generated_file(cuda_device, monkeypatch):
 
     merger.air = object.__new__(Edited)
     with pytest.raises(ValueError, match="no generated kernel"):
-        merger.k5_inputs(*frames, 0)
+        merger.fragment(*frames, 0)
 
 
 @pytest.mark.parametrize("n,pad", [(64, 0), (1000, 0), (1000, 7),
