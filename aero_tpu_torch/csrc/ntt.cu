@@ -14,11 +14,28 @@
 // across the outermost axis.
 //
 // What bounds it on this card: the ALU pipe. A butterfly is a Goldilocks
-// add and subtract and, unless its twiddle is 1, a multiply, some 40 ALU
-// instructions against 8 bytes of device memory an element a pass; Hopper
-// has no 64-bit multiplier, and the multiply's carries and the reductions
-// run on the integer ALU. The design keeps everything but that arithmetic
+// add and subtract and, unless its twiddle is 1, a multiply, against 8
+// bytes of device memory an element a pass; Hopper has no 64-bit
+// multiplier, and the multiply's carries and the reductions run on the
+// integer ALU. The design keeps that arithmetic short and everything else
 // off the ALU:
+//   - Lazy words inside a pass. From its load to its store a value is held
+//     as any 64-bit word congruent to it mod p, not as its canonical
+//     residue: the butterflies, a step's pre-twiddles, the LDE entry's
+//     offset scaling and the cross multiply take gl_add_lazy, gl_sub_lazy
+//     and gl_mul_lazy (goldilocks.cuh), which leave out the compare,
+//     subtract and select of every canonicalisation, and shared memory
+//     holds lazy words between steps. Any word is a valid input to them and
+//     none can overflow, however long the chain: each corrects a carry or
+//     borrow of 2^64 by EPS = 2^64 mod p, and the one carry or borrow that
+//     correction can make, which cannot recur (goldilocks.cuh shows why).
+//     A word is made canonical once, by one gl_canon, where it is stored to
+//     device memory (`store_out`: a pass's output, so also the buffer
+//     between passes), so every tensor a launch writes holds values in
+//     [0, p) as before. The transform's operations are the same ones, so
+//     the work and the results are exactly the same; a butterfly takes some
+//     23 ALU instructions in place of the canonical forms' 40 (the field-op
+//     probe, csrc/probe/field_ops.cu).
 //   - Radix-16 steps in registers. log2(L) = r1 + 4 + 4 + ..., r1 <= 4.
 //     Each thread holds the 2^r elements of a group and runs r radix-2
 //     stages on them in registers; elements cross threads through shared
@@ -32,7 +49,9 @@
 //     exactly where a radix-2 transform has a twiddle other than 1.
 //   - Wide tiles: L x TC with L * TC up to 2^14 (128 KB of dynamic shared
 //     memory, kLogMaxTile); the wrapper takes 2^13 where C allows (64 KB,
-//     two blocks an SM at 128 registers a thread): at L = 2048 a row of a
+//     two blocks an SM at up to 128 registers a thread, three for the LDE
+//     entry at up to 80, which ran it faster on an H100; a transform's pass
+//     of 4096 rows ran slower at three): at L = 2048 a row of a
 //     tile is four columns, one 32-byte sector; at 4096 two, whose half
 //     sectors meet the neighbouring tile's in L2, since neighbouring tiles
 //     run together. Of tiles of 2^12, 2^13 and 2^14 elements, 2^13 ran the
@@ -106,9 +125,9 @@ __device__ __forceinline__ void dft_stage(u64 (&a)[1 << r], const u64* w) {
     for (int j = 0; j < half; ++j) {
       const u64 u = a[k0 + j];
       u64 v = a[k0 + j + half];
-      if (j) v = gl_mul(v, w[j * (R >> (t + 1))]);
-      a[k0 + j] = gl_add(u, v);
-      a[k0 + j + half] = gl_sub(u, v);
+      if (j) v = gl_mul_lazy(v, w[j * (R >> (t + 1))]);
+      a[k0 + j] = gl_add_lazy(u, v);
+      a[k0 + j + half] = gl_sub_lazy(u, v);
     }
   }
 }
@@ -173,18 +192,16 @@ __device__ __forceinline__ unsigned slot(const Tile& t, unsigned p, int c) {
   return ((swz(p, t.k) << t.ltc) | (unsigned)c) << 3;
 }
 
+// output row `row`, column c: times the cross table's element where there
+// is one, read here rather than held through the DFT, then made canonical,
+// the one canonicalisation a value gets between its load and its store
 template <bool kCross>
 __device__ __forceinline__ void store_out(const Pass& p, const Tile& t,
-                                          long long row, int c, u64 v,
-                                          u64 cr) {
-  if (kCross) v = gl_mul(v, cr);
-  p.out[t.b * p.out_sb + row * p.out_sr + (t.c0 + c) * p.out_sc] = v;
-}
-
-template <bool kCross>
-__device__ __forceinline__ u64 cross_at(const Pass& p, const Tile& t,
-                                        long long row, int c) {
-  return kCross ? __ldg(p.cross + row * p.cross_ld + t.c0 + c) : 0;
+                                          long long row, int c, u64 v) {
+  if (kCross)
+    v = gl_mul_lazy(v, __ldg(p.cross + row * p.cross_ld + t.c0 + c));
+  p.out[t.b * p.out_sb + row * p.out_sr + (t.c0 + c) * p.out_sc] =
+      gl_canon(v);
 }
 
 // The first step: a group reads rows g + q * L/R of its column (q < R, or
@@ -216,9 +233,10 @@ __device__ __forceinline__ void first_step(const Pass& p, const Tile& t,
       const long long row = g + ((long long)q << lgr);
       if (kLde) {
         const long long i = row * p.C + t.c0 + c;
-        a[m] = i < p.n ? gl_mul(gl_mul(__ldg(p.in + t.b * p.n + i),
-                                       __ldg(p.colpow + t.c0 + c)),
-                                __ldg(p.rowpow + row))
+        a[m] = i < p.n ? gl_mul_lazy(
+                             gl_mul_lazy(__ldg(p.in + t.b * p.n + i),
+                                         __ldg(p.colpow + t.c0 + c)),
+                             __ldg(p.rowpow + row))
                        : 0;
       } else {
         a[m] = __ldg(p.in + t.b * p.in_sb + row * p.in_sr +
@@ -227,12 +245,9 @@ __device__ __forceinline__ void first_step(const Pass& p, const Tile& t,
     }
     if (kLde) replicate<r>(a, z);
     if (only) {
-      u64 cr[R];
-#pragma unroll
-      for (int m = 0; m < R; ++m) cr[m] = cross_at<kCross>(p, t, m, c);
       dft<r>(a, w, z);
 #pragma unroll
-      for (int m = 0; m < R; ++m) store_out<kCross>(p, t, m, c, a[m], cr[m]);
+      for (int m = 0; m < R; ++m) store_out<kCross>(p, t, m, c, a[m]);
     } else {
       dft<r>(a, w, z);
       const unsigned hi = rev_bits((unsigned)g, lgr);
@@ -267,28 +282,22 @@ __device__ __forceinline__ void radix16_step(const Pass& p, const Tile& t,
     const unsigned base = slot(t, ((unsigned)hi << (s0 + 4)) | lo, c);
     unsigned off[16];
     u64 a[16];
-    u64 cr[16];
 #pragma unroll
     for (int m = 0; m < 16; ++m) {
       off[m] = base ^ ((m & 1) ? xb[0] : 0u) ^ ((m & 2) ? xb[1] : 0u) ^
                ((m & 4) ? xb[2] : 0u) ^ ((m & 8) ? xb[3] : 0u);
       a[m] = *(const u64*)((const char*)sm + off[m]);
     }
-    if (last) {
-#pragma unroll
-      for (int m = 0; m < 16; ++m)
-        cr[m] = cross_at<kCross>(p, t, m * S + lo, c);
-    }
     if (lo) {
 #pragma unroll
       for (int m = 1; m < 16; ++m)
-        a[m] = gl_mul(a[m], __ldg(p.tw + ((rev_c(m, 4) * lo) << f)));
+        a[m] = gl_mul_lazy(a[m], __ldg(p.tw + ((rev_c(m, 4) * lo) << f)));
     }
     dft<4>(a, w16, 0);
     if (last) {
 #pragma unroll
       for (int m = 0; m < 16; ++m)
-        store_out<kCross>(p, t, (long long)m * S + lo, c, a[m], cr[m]);
+        store_out<kCross>(p, t, (long long)m * S + lo, c, a[m]);
     } else {
 #pragma unroll
       for (int m = 0; m < 16; ++m)
@@ -298,7 +307,7 @@ __device__ __forceinline__ void radix16_step(const Pass& p, const Tile& t,
 }
 
 template <bool kLde, bool kCross>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kLde ? 3 : 2)
     colntt_kernel(const Pass p) {
   extern __shared__ __align__(16) u64 sm[];
   const Tile t = tile_of(p);

@@ -10,7 +10,10 @@
 // adds or multiplies by one. probe_mul_pow2: the multiply by a root of unity
 // of order at most 64, +-2^e with e = 3, 6, .., 93 (`gl_mul_pow2`), the
 // 31 exponents in turn; kernel 1's bound prices those twiddles at the
-// cheaper of it and probe_mul_vv.
+// cheaper of it and probe_mul_vv. probe_{add,sub,mul}_lazy_vv: the lazy
+// forms kernel 1 computes with inside a pass, logged beside the canonical
+// ops; no bound prices them (a bound counts the ops a function needs, at
+// the canonical forms' counts).
 //
 // chip_smoke.py builds this file into a cubin of its own and reads its SASS;
 // it is not part of the kernel library and is never launched.
@@ -46,3 +49,6 @@ FIELD_OP_PROBE(probe_sub_vc, gl_sub(a, c))
 FIELD_OP_PROBE(probe_mul_vv, gl_mul(a, b))
 FIELD_OP_PROBE(probe_mul_vc, gl_mul(a, c))
 FIELD_OP_PROBE(probe_mul_pow2, gl_mul_pow2(a, 3 * (1 + r % 31)))
+FIELD_OP_PROBE(probe_add_lazy_vv, gl_add_lazy(a, b))
+FIELD_OP_PROBE(probe_sub_lazy_vv, gl_sub_lazy(a, b))
+FIELD_OP_PROBE(probe_mul_lazy_vv, gl_mul_lazy(a, b))

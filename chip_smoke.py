@@ -365,9 +365,11 @@ def start_probe_build():
 
 def field_op_counts(job, cubin) -> dict:
     """Instructions of one field op by pipe, add / sub / mul with two
-    varying operands ("vv") or a constant second one ("vc"), and the
-    multiply by a root of unity of order at most 64 by shifts ("mul_pow2"):
-    each probe kernel's count less probe_none's, over its PROBE_OPS ops."""
+    varying operands ("vv") or a constant second one ("vc"), the multiply
+    by a root of unity of order at most 64 by shifts ("mul_pow2") and the
+    lazy forms kernel 1 computes with ("*_lazy_vv", logged, priced by no
+    bound): each probe kernel's count less probe_none's, over its
+    PROBE_OPS ops."""
     from aero_tpu_torch import _sass
     _, err = job.communicate()
     check(job.returncode == 0, f"nvcc builds {PROBE_SRC}: {err}")
@@ -375,7 +377,7 @@ def field_op_counts(job, cubin) -> dict:
     base = _sass.count_instructions(fns["probe_none"])
     out = {}
     for op in ("add_vv", "add_vc", "sub_vv", "sub_vc", "mul_vv", "mul_vc",
-               "mul_pow2"):
+               "mul_pow2", "add_lazy_vv", "sub_lazy_vv", "mul_lazy_vv"):
         c = _sass.count_instructions(fns[f"probe_{op}"])
         log(f"[set-up] probe_{op}: {c}; probe_none: {base}")
         d = _sass.Counts(*((getattr(c, f) - getattr(base, f)) / PROBE_OPS
@@ -1217,9 +1219,10 @@ def kernel_resources(lib, pattern: str, threads: int, what: str) -> tuple:
 NTT_THREADS = 256             # csrc/ntt.cu kThreads
 NTT_NOTE = ("radix-16 steps in registers over tiles of 2^13 elements (64 KB "
             "of dynamic shared memory a block, XOR-swizzled), a step's "
-            "pre-twiddles from one table of w_L^e, no multiply by 1; bound "
+            "pre-twiddles from one table of w_L^e, no multiply by 1, lazy "
+            "words inside a pass and canonical ones at every store; bound "
             "by the field ops the transform needs (_sass.ntt_field_ops), "
-            "each at the probe's count")
+            "each at the probe's count of its canonical form")
 NTT_LDE_NOTE = ("the coset LDE's first pass alone: reads the n coefficients, "
                 "scales them by offset^i as it loads them and skips the "
                 "stages that only copy; the LDE is this launch and one "
@@ -1227,16 +1230,39 @@ NTT_LDE_NOTE = ("the coset LDE's first pass alone: reads the n coefficients, "
                 "bound); no zero-padded input exists")
 
 
+def radix16_trip(body, what: str):
+    """One trip of kernel 1's radix-16 step in SASS `body`, a group of 16
+    elements: the innermost loop that holds 16 shared-memory loads (the
+    pre-twiddles, 32 butterflies and both of the step's ends, the shared
+    stores of a middle step and the cross multiplies and global stores of
+    the last), counted by pipe and logged."""
+    from aero_tpu_torch import _sass
+    lds = [lp for lp in _sass.loops(body)
+           if sum(i.op == "LDS" for i in lp) == 16]
+    inner = [lp for lp in lds if not any(
+        o is not lp and lp[0].addr <= o[0].addr and o[-1].addr <= lp[-1].addr
+        for o in lds)]
+    check(len(inner) == 1, f"{what}: one innermost loop of 16 shared loads "
+          f"(the radix-16 step), found {len(inner)}")
+    c = _sass.count_instructions(inner[0])
+    log(f"[set-up] {what}, one radix-16 step (16 elements): {c.alu} ALU, "
+        f"{c.fma} multiply-add, {c.memory} memory, {c.total} instructions")
+    return c
+
+
 def ntt_resources(lib) -> dict:
     """Kernel 1's two instances of library `lib` (`kernel_resources`), with
     a cross table (the first pass of every transform): the transform's and
-    the LDE entry's, keyed by whether it is the LDE's."""
+    the LDE entry's, keyed by whether it is the LDE's, each with the
+    instructions of one radix-16 step by pipe (`radix16_trip`)."""
     out = {}
     for lde, pattern in ((False, "colntt_kernelILb0ELb1E"),
                          (True, "colntt_kernelILb1ELb1E")):
-        out[lde], _ = kernel_resources(
-            lib, pattern, NTT_THREADS,
-            f"kernel 1 {'LDE entry' if lde else 'pass'}")
+        what = f"kernel 1 {'LDE entry' if lde else 'pass'}"
+        out[lde], body = kernel_resources(lib, pattern, NTT_THREADS, what)
+        c = radix16_trip(body, what)
+        out[lde].update(radix16_alu=c.alu, radix16_fma=c.fma,
+                        radix16_memory=c.memory)
     return out
 
 
@@ -2716,6 +2742,8 @@ def main(argv=None) -> int:
                                     "stack_bytes", "spill_instructions",
                                     "global_loads", "blocks_per_sm",
                                     "warps_per_sm", "words_read_per_point",
+                                    "radix16_alu", "radix16_fma",
+                                    "radix16_memory",
                                     "route_ms", "last_fragment_ms",
                                     "op_by_op_k1_ms")
             if key in k}}

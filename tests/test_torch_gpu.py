@@ -175,6 +175,99 @@ def test_lde_past_the_two_pass_limit_on_the_card(cuda_device):
     ntt_cuda.clear_table_cache()
 
 
+# words whose adds carry past 2^64, and p - 1 beside a small word, whose
+# sum lands in [p, 2^64): kernel 1 holds such sums lazily between stores
+CARRY_WORDS = np.array([P - 1, P - 2, 0, 1, 2, 1 << 63, P - (1 << 31), P - 7],
+                       dtype=np.uint64)
+
+
+def _adversarial(kind, shape, device):
+    if kind == "p_minus_1":
+        return _words(np.full(shape, P - 1, dtype=np.uint64), device)
+    idx = np.random.default_rng(24).integers(0, len(CARRY_WORDS), size=shape)
+    return _words(CARRY_WORDS[idx], device)
+
+
+@pytest.mark.parametrize("kind", ["p_minus_1", "carries"])
+@pytest.mark.parametrize("route,rows,logn", [
+    ("lde", 72, 20), ("ntt", 8, 20), ("ntt", 1, 23), ("ntt", 8, 17)])
+def test_kernel_1_on_adversarial_columns(cuda_device, kind, route, rows,
+                                         logn):
+    """Kernel 1's lazy words at the cells' shapes (the main LDE 72 x 2^20
+    -> 2^23, 8 x 2^20, 2^23 x 1, 2^17; transforms in both directions) on
+    columns of p - 1 and of words whose adds carry: torch.equal to the
+    plain route, 8 rows at a time, and every word it stores canonical."""
+    x = _adversarial(kind, (rows, 1 << logn), cuda_device)
+    runs = ([(lde(x, 3), lambda a: ntt_cuda.ntt_four_step_plain(
+        coset_pad(x[a:a + 8], 3), False))] if route == "lde" else
+        [(ntt_cuda.ntt_cuda(x, inv), lambda a, inv=inv:
+          ntt_cuda.ntt_four_step_plain(x[a:a + 8], inv))
+         for inv in (False, True)])
+    for got, plain in runs:
+        # canonical: below p as a u64, so not in [p - 2^64, 0) as an int64
+        assert not bool(((got < 0) & (got >= P - (1 << 64))).any())
+        for a in range(0, rows, 8):
+            assert torch.equal(got[a:a + 8], plain(a))
+    del runs
+    ntt_cuda.clear_table_cache()
+    torch.cuda.empty_cache()
+
+
+LAZY_CHECK = r"""
+#include "goldilocks.cuh"
+extern "C" __global__ void lazy_ops(const u64* a, const u64* b, u64* out,
+                                    int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    out[3 * i] = gl_add_lazy(a[i], b[i]);
+    out[3 * i + 1] = gl_sub_lazy(a[i], b[i]);
+    out[3 * i + 2] = gl_mul_lazy(a[i], b[i]);
+  }
+}
+extern "C" int run_lazy_ops(const u64* a, const u64* b, u64* out, int n) {
+  lazy_ops<<<(n + 255) / 256, 256>>>(a, b, out, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def test_lazy_forms_on_the_card_are_congruent_to_the_field_ops(cuda_device,
+                                                              tmp_path):
+    """`gl_add_lazy`, `gl_sub_lazy` and `gl_mul_lazy` as the card computes
+    them (csrc/goldilocks.cuh built by nvcc), on every pair of edge words
+    (2^64 - 1 plus itself carries twice, 0 less 2^64 - 1 borrows twice)
+    and seeded random words: each result congruent mod p to the exact
+    one."""
+    import ctypes
+    import subprocess
+
+    from aero_tpu_torch import _build
+    src = tmp_path / "lazy.cu"
+    src.write_text(LAZY_CHECK)
+    so = tmp_path / "lazy.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                    str(_build.CSRC), str(src), "-o", str(so)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.run_lazy_ops.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    eps = (1 << 32) - 1
+    edge = [0, 1, 2, eps, eps + 1, P - 1, P, P + 1, 1 << 63,
+            (1 << 64) - eps - 1, (1 << 64) - 2, (1 << 64) - 1]
+    words = edge + [int(v) for v in np.random.default_rng(25).integers(
+        0, 1 << 64, 60, dtype=np.uint64)]
+    a = [u for u in words for _ in words]
+    b = [v for _ in words for v in words]
+    out = torch.empty(3 * len(a), dtype=torch.int64, device=cuda_device)
+    ta, tb = (_words(np.array(w, dtype=np.uint64), cuda_device)
+              for w in (a, b))
+    assert lib.run_lazy_ops(ta.data_ptr(), tb.data_ptr(), out.data_ptr(),
+                            len(a)) == 0
+    got = out.cpu().numpy().view(np.uint64).reshape(-1, 3)
+    for i, (u, v) in enumerate(zip(a, b)):
+        for k, exact in enumerate((u + v, u - v, u * v)):
+            assert (int(got[i, k]) - exact) % P == 0, (k, hex(u), hex(v))
+
+
 @pytest.mark.parametrize("shape", [(3, 64), (2, 256), (2, 4, 1 << 10),
                                    (8, 1 << 13), (2, 1 << 18)])
 def test_ntt_mxu_on_the_card_equals_the_ntt_kernel(cuda_device, shape):

@@ -12,7 +12,12 @@
   bit reversals and the swizzle of its shared memory), transliterated line
   by line into Python and run on small shapes in place of the launches:
   every transform and LDE then equals the plain versions, and every step
-  writes each slot of a tile exactly once.
+  writes each slot of a tile exactly once. The transliteration carries the
+  kernel's lazy words (any 64-bit word congruent to the value, with the
+  corrections of `gl_add_lazy`, `gl_sub_lazy` and `gl_mul_lazy`) and
+  asserts that each word stored to the output is canonical; adversarial
+  columns (all p - 1, and words whose adds carry or land in [p, 2^64))
+  hold it to `ntt_plain` and `aero_tpu`.
 
 Exact equality throughout. The JAX side runs op by op (`jax.disable_jit`).
 """
@@ -191,6 +196,55 @@ def test_outer_and_lde_tables_on_a_device():
 
 # -------------------------------- the kernel's index arithmetic, emulated
 
+M64 = (1 << 64) - 1
+EPS = (1 << 32) - 1
+# words that the emulation held in [p, 2^64) between a load and a store
+LAZY_WORDS = {"noncanonical": 0}
+
+
+def _add_lazy(a, b):
+    """`gl_add_lazy` of csrc/goldilocks.cuh: + EPS for the 128-bit sum's
+    carry, then for that sum's; a third cannot carry."""
+    s = a + b
+    t = (s & M64) + (EPS if s >> 64 else 0)
+    r = (t & M64) + (EPS if t >> 64 else 0)
+    assert r <= M64
+    return r
+
+
+def _sub_lazy(a, b):
+    """`gl_sub_lazy`: - EPS for the borrow, then for that difference's."""
+    d = a - b
+    t = (d & M64) - (EPS if d < 0 else 0)
+    r = (t & M64) - (EPS if t < 0 else 0)
+    assert r >= 0
+    return r
+
+
+def _mul_lazy(a, b):
+    """`gl_mul_lazy`: the reduction of the 128-bit product, 2^64 = EPS and
+    2^96 = -1, with no canonicalisation."""
+    ab = a * b
+    lo, hi = ab & M64, ab >> 64
+    d = lo - (hi >> 32)
+    t = (d & M64) - (EPS if d < 0 else 0)
+    assert t >= 0
+    r = t + (hi & EPS) * EPS
+    out = (r & M64) + (EPS if r >> 64 else 0)
+    assert out <= M64
+    return out
+
+
+def _canon(a):
+    return a - P if a >= P else a
+
+
+def _held(a):
+    """Count the words of a that are not canonical (the lazy form at
+    work); return a."""
+    LAZY_WORDS["noncanonical"] += sum(v >= P for v in a)
+    return a
+
 def _swz(p, k):
     if k <= 0:
         return p
@@ -213,16 +267,18 @@ def _dft(a, r, w, z):
             for j in range(half):
                 u, v = a[k0 + j], a[k0 + j + half]
                 if j:
-                    v = F.mul(v, w[j * (R >> (t + 1))])
-                a[k0 + j], a[k0 + j + half] = F.add(u, v), F.sub(u, v)
+                    v = _mul_lazy(v, w[j * (R >> (t + 1))])
+                a[k0 + j] = _add_lazy(u, v)
+                a[k0 + j + half] = _sub_lazy(u, v)
 
 
 def _emulate(src, dst, tw, cross, log_L, log_TC, C, B, in_s, out_s,
              cross_ld, lde=None):
     """`colntt_kernel` of csrc/ntt.cu, block by block and group by group:
     src, dst, tw, cross flat lists of ints (dst written in place); lde =
-    (n, z, rowpow, colpow) for the LDE entry. Checks that each step writes
-    every slot of the tile once."""
+    (n, z, rowpow, colpow) for the LDE entry. Between a load and a store
+    the words are the kernel's lazy ones; each is made canonical as it is
+    stored. Checks that each step writes every slot of the tile once."""
     lg, ltc = log_L, log_TC
     L, TC = 1 << lg, 1 << ltc
     assert lg + ltc <= 14 and C % TC == 0
@@ -236,7 +292,9 @@ def _emulate(src, dst, tw, cross, log_L, log_TC, C, B, in_s, out_s,
 
     def store(b, c0, row, c, v, cr):
         if cross is not None:
-            v = F.mul(v, cr)
+            v = _mul_lazy(v, cr)
+        v = _canon(v)
+        assert 0 <= v < P
         dst[b * out_s[0] + row * out_s[1] + (c0 + c) * out_s[2]] = v
 
     def cross_at(c0, row, c):
@@ -261,8 +319,9 @@ def _emulate(src, dst, tw, cross, log_L, log_TC, C, B, in_s, out_s,
                 if lde:
                     n, _, rowpow, colpow = lde
                     i = row * C + c0 + c
-                    a[m] = (F.mul(F.mul(src[b * n + i], colpow[c0 + c]),
-                                  rowpow[row]) if i < n else 0)
+                    a[m] = (_mul_lazy(_mul_lazy(src[b * n + i],
+                                                colpow[c0 + c]),
+                                      rowpow[row]) if i < n else 0)
                 else:
                     a[m] = src[b * in_s[0] + row * in_s[1] +
                                (c0 + c) * in_s[2]]
@@ -270,6 +329,7 @@ def _emulate(src, dst, tw, cross, log_L, log_TC, C, B, in_s, out_s,
                 if m & ((1 << z) - 1):
                     a[m] = a[m & ~((1 << z) - 1)]
             _dft(a, r1, w, z)
+            _held(a)
             if K == 1:
                 for m in range(R):
                     store(b, c0, m, c, a[m], cross_at(c0, m, c))
@@ -301,8 +361,9 @@ def _emulate(src, dst, tw, cross, log_L, log_TC, C, B, in_s, out_s,
                 a = [sm[o] for o in offs]
                 if lo:
                     for m in range(1, 16):
-                        a[m] = F.mul(a[m], tw[(_rev(m, 4) * lo) << f])
+                        a[m] = _mul_lazy(a[m], tw[(_rev(m, 4) * lo) << f])
                 _dft(a, 4, w16, 0)
+                _held(a)
                 for m in range(16):
                     if last:
                         row = m * S + lo
@@ -404,3 +465,80 @@ def test_emulated_kernel_with_wide_tiles():
                  1, (L * C, C, 1), (L * C, C, 1), C)
         want = ntt_cuda.colntt_plain(x, tw, cross)
         assert got == _flat(want)
+
+
+# ---------------------------------- adversarial columns for the lazy words
+
+ADVERSARIAL = ("p_minus_1", "carries")
+
+
+def _adversarial(kind, logn, cols, seed):
+    """Columns of p - 1, or of words drawn from p - 1, p - 2, 0, 1, 2,
+    2^63, p - 2^31 and p - 7: pairs of them carry past 2^64, and p - 1
+    beside a small word sums into [p, 2^64)."""
+    if kind == "p_minus_1":
+        return np.full((cols, 1 << logn), P - 1, dtype=np.uint64)
+    words = np.array([P - 1, P - 2, 0, 1, 2, 1 << 63, P - (1 << 31), P - 7],
+                     dtype=np.uint64)
+    rng = np.random.default_rng(seed + logn)
+    return words[rng.integers(0, len(words), size=(cols, 1 << logn))]
+
+
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+@pytest.mark.parametrize("logn", [1, 4, 6, 10])
+def test_emulated_kernel_adversarial_transforms(emulated_kernel, kind, logn):
+    """The transform on adversarial columns == ntt_plain == aero_tpu; the
+    words that carry into [p, 2^64) are held lazily between stores."""
+    x_np = _adversarial(kind, logn, 3, 80)
+    x = T.from_u64(x_np, "cpu")
+    held = LAZY_WORDS["noncanonical"]
+    for invert, jfn in ((False, JN.ntt), (True, JN.intt)):
+        got = ntt_cuda.ntt_cuda(x, invert)
+        assert torch.equal(got, TN.ntt_plain(x, invert))
+        assert np.array_equal(T.to_u64(got), _jax(jfn, x_np))
+    if kind == "carries" and logn >= 4:
+        assert LAZY_WORDS["noncanonical"] > held
+
+
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+@pytest.mark.parametrize("max_l,logn", [(4, 5), (8, 7)])
+def test_emulated_kernel_adversarial_three_passes(emulated_kernel, kind,
+                                                  max_l, logn):
+    x_np = _adversarial(kind, logn, 2, 81)
+    x = T.from_u64(x_np, "cpu").reshape(2, 1, -1)
+    for invert, jfn in ((False, JN.ntt), (True, JN.intt)):
+        got = ntt_cuda.ntt_cuda(x, invert, max_l=max_l)
+        assert torch.equal(got, TN.ntt_plain(x, invert))
+        assert np.array_equal(T.to_u64(got).reshape(2, -1),
+                              _jax(jfn, x_np))
+
+
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+@pytest.mark.parametrize("logn,log_blowup,max_l", [
+    (5, 3, 4096), (6, 4, 4096), (4, 3, 8)])
+def test_emulated_kernel_adversarial_lde(emulated_kernel, kind, logn,
+                                         log_blowup, max_l):
+    x_np = _adversarial(kind, logn, 2, 82)
+    x = T.from_u64(x_np, "cpu")
+    for offset in (F.DOMAIN_OFFSET, OTHER_OFFSET):
+        got = ntt_cuda.lde_cuda(x, log_blowup, offset, max_l=max_l)
+        assert torch.equal(got, TN.ntt_plain(TN.coset_pad(x, log_blowup,
+                                                          offset)))
+        assert np.array_equal(T.to_u64(got),
+                              _jax(JN.lde, x_np, log_blowup, offset))
+
+
+@pytest.mark.parametrize("kind", ADVERSARIAL)
+def test_emulated_kernel_with_wide_tiles_on_adversarial_columns(kind):
+    """The wide tiles of `test_emulated_kernel_with_wide_tiles` with
+    adversarial columns and a cross table of p - 1."""
+    for log_L, log_TC, C in ((12, 1, 2), (4, 4, 16), (9, 3, 16)):
+        L = 1 << log_L
+        x = T.from_u64(_adversarial(kind, (L * C).bit_length() - 1, 1, 83)
+                       .reshape(1, L, C), "cpu")
+        tw = T.power_series(F.get_root_of_unity(log_L), L)
+        cross = T.from_u64(np.full((L, C), P - 1, dtype=np.uint64), "cpu")
+        got = [0] * (L * C)
+        _emulate(_flat(x), got, _flat(tw), _flat(cross), log_L, log_TC, C,
+                 1, (L * C, C, 1), (L * C, C, 1), C)
+        assert got == _flat(ntt_cuda.colntt_plain(x, tw, cross))

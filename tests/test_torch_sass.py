@@ -215,7 +215,8 @@ def test_missing_cuobjdump_raises(monkeypatch, tmp_path):
         _sass.dump_sass(tmp_path / "lib.so")
 
 
-# ------------- the multiply by 2^e that prices kernel 1's +-2^e twiddles
+# ------------- the multiply by 2^e that prices kernel 1's +-2^e twiddles,
+# and the lazy forms kernel 1 computes with inside a pass
 
 SHIM = r"""
 #define __device__
@@ -227,34 +228,60 @@ static inline unsigned long long __umul64hi(unsigned long long a,
 #include "goldilocks.cuh"
 extern "C" u64 host_mul(u64 a, u64 b) { return gl_mul(a, b); }
 extern "C" u64 host_mul_pow2(u64 a, int e) { return gl_mul_pow2(a, e); }
+extern "C" u64 host_add(u64 a, u64 b) { return gl_add(a, b); }
+extern "C" u64 host_sub(u64 a, u64 b) { return gl_sub(a, b); }
+extern "C" u64 host_canon(u64 a) { return gl_canon(a); }
+extern "C" u64 host_add_lazy(u64 a, u64 b) { return gl_add_lazy(a, b); }
+extern "C" u64 host_sub_lazy(u64 a, u64 b) { return gl_sub_lazy(a, b); }
+extern "C" u64 host_mul_lazy(u64 a, u64 b) { return gl_mul_lazy(a, b); }
 """
 
+GL_P = (1 << 64) - (1 << 32) + 1
+EPS = (1 << 32) - 1
+# the words at the edges of the lazy forms' corrections: 2^64 - 1 plus
+# itself carries twice, 0 less 2^64 - 1 borrows twice
+EDGE_WORDS = (0, 1, 2, EPS, EPS + 1, GL_P - 1, GL_P, GL_P + 1, 1 << 63,
+              (1 << 64) - EPS - 1, (1 << 64) - 2, (1 << 64) - 1)
 
-def test_mul_pow2_is_the_multiply_by_2_to_the_e(tmp_path):
-    """`gl_mul_pow2` (csrc/goldilocks.cuh), which the field-op probe
-    prices, built for the host with g++: a * 2^e mod p for every e in
-    1..95 and edge values of a; and `gl_mul` over the same reduction."""
+
+@pytest.fixture(scope="module")
+def host_shim(tmp_path_factory):
+    """csrc/goldilocks.cuh built for the host with g++, its functions
+    behind a C interface."""
     import ctypes
     import shutil
     import subprocess
 
-    import numpy as np
-
     from aero_tpu_torch import _build
-    from aero_tpu_torch.spec import field as F
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.fail("g++ is needed to build the host shim")
-    (tmp_path / "shim.cpp").write_text(SHIM)
+    tmp = tmp_path_factory.mktemp("shim")
+    (tmp / "shim.cpp").write_text(SHIM)
     subprocess.run([gxx, "-O1", "-std=c++17", "-fPIC", "-shared", "-I",
-                    str(_build.CSRC), str(tmp_path / "shim.cpp"),
-                    "-o", str(tmp_path / "shim.so")], check=True,
+                    str(_build.CSRC), str(tmp / "shim.cpp"),
+                    "-o", str(tmp / "shim.so")], check=True,
                    capture_output=True)
-    lib = ctypes.CDLL(str(tmp_path / "shim.so"))
+    lib = ctypes.CDLL(str(tmp / "shim.so"))
     u64 = ctypes.c_uint64
-    lib.host_mul.restype = lib.host_mul_pow2.restype = u64
-    lib.host_mul.argtypes = [u64, u64]
+    for name in ("mul", "add", "sub", "add_lazy", "sub_lazy", "mul_lazy"):
+        fn = getattr(lib, f"host_{name}")
+        fn.restype = u64
+        fn.argtypes = [u64, u64]
+    lib.host_mul_pow2.restype = lib.host_canon.restype = u64
     lib.host_mul_pow2.argtypes = [u64, ctypes.c_int]
+    lib.host_canon.argtypes = [u64]
+    return lib
+
+
+def test_mul_pow2_is_the_multiply_by_2_to_the_e(host_shim):
+    """`gl_mul_pow2` (csrc/goldilocks.cuh), which the field-op probe
+    prices, built for the host with g++: a * 2^e mod p for every e in
+    1..95 and edge values of a; and `gl_mul` over the same reduction."""
+    import numpy as np
+
+    from aero_tpu_torch.spec import field as F
+    lib = host_shim
     rng = np.random.default_rng(11)
     values = [0, 1, 2, F.P - 1, F.P - 2, 1 << 63, 1 << 32, (1 << 32) - 1,
               *(int(v) for v in rng.integers(0, F.P, 24, dtype=np.uint64))]
@@ -263,3 +290,74 @@ def test_mul_pow2_is_the_multiply_by_2_to_the_e(tmp_path):
             assert lib.host_mul_pow2(a, e) == a * pow(2, e, F.P) % F.P, (a, e)
         for b in values:
             assert lib.host_mul(a, b) == a * b % F.P
+
+
+def _words(seed, n):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [int(v) for v in rng.integers(0, 1 << 64, n, dtype=np.uint64)]
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul"])
+def test_lazy_forms_are_congruent_to_the_field_ops(host_shim, op):
+    """`gl_add_lazy`, `gl_sub_lazy` and `gl_mul_lazy` on any two words,
+    edge words and seeded random ones, canonical or not: a word congruent
+    to the op's result mod p, which one `gl_canon` makes the canonical
+    op's result; on canonical words the canonical op gives it too."""
+    lazy = getattr(host_shim, f"host_{op}_lazy")
+    canonical = getattr(host_shim, f"host_{op}")
+    exact = {"add": lambda a, b: a + b, "sub": lambda a, b: a - b,
+             "mul": lambda a, b: a * b}[op]
+    words = list(EDGE_WORDS) + _words(21, 40)
+    for a in words:
+        for b in words:
+            got = lazy(a, b)
+            want = exact(a, b) % GL_P
+            assert got % GL_P == want, (op, hex(a), hex(b))
+            assert host_shim.host_canon(got) == want
+            assert canonical(a % GL_P, b % GL_P) == want
+
+
+def _dit_pass(a, w, add, sub, mul):
+    """A radix-2 decimation-in-time transform of a[] (bit-reversed in
+    place) with the twiddles of w (w[e] = w_n^e), in the given ops."""
+    n = len(a)
+    half = 1
+    while half < n:
+        step = n // (2 * half)
+        for k0 in range(0, n, 2 * half):
+            for j in range(half):
+                u, v = a[k0 + j], a[k0 + j + half]
+                if j:
+                    v = mul(v, w[j * step])
+                a[k0 + j], a[k0 + j + half] = add(u, v), sub(u, v)
+        half *= 2
+    return a
+
+
+@pytest.mark.parametrize("kind", ["p_minus_1", "all_ones", "words"])
+def test_lazy_chains_of_a_pass_end_canonical_and_exact(host_shim, kind):
+    """A pass's chain in the lazy forms: a pre-twiddle multiply, the 12
+    butterfly stages of a 4096-point transform and the cross multiply,
+    then one `gl_canon`, equals the same chain in the canonical ops on the
+    words reduced mod p, bit for bit, and the field's own arithmetic."""
+    from aero_tpu_torch.spec import field as F
+    lib = host_shim
+    n = 1 << 12
+    w = [F.exp(F.get_root_of_unity(12), e) for e in range(n // 2)]
+    x = {"p_minus_1": [GL_P - 1] * n, "all_ones": [(1 << 64) - 1] * n,
+         "words": _words(22, n)}[kind]
+    pre = _words(23, n)
+    cross = [GL_P - 1] * (n // 2) + [v % GL_P for v in _words(24, n // 2)]
+    lazy = _dit_pass([lib.host_mul_lazy(v, t) for v, t in zip(x, pre)], w,
+                     lib.host_add_lazy, lib.host_sub_lazy, lib.host_mul_lazy)
+    lazy = [lib.host_canon(lib.host_mul_lazy(v, c))
+            for v, c in zip(lazy, cross)]
+    canonical = _dit_pass([lib.host_mul(v % GL_P, t % GL_P)
+                           for v, t in zip(x, pre)], w, lib.host_add,
+                          lib.host_sub, lib.host_mul)
+    canonical = [lib.host_mul(v, c) for v, c in zip(canonical, cross)]
+    field = _dit_pass([v * t % GL_P for v, t in zip(x, pre)], w, F.add,
+                      F.sub, F.mul)
+    field = [F.mul(v, c) for v, c in zip(field, cross)]
+    assert lazy == canonical == field
